@@ -1,0 +1,35 @@
+"""Core geometry constants of the PyTorch/CUDA port.
+
+The fixed geometry of the file system (reference: CMakeLists.txt:93-94,
+src/protocol/MFSCommunication.h:60-84): a chunk is 1024 blocks of 64 KiB,
+each block carries a CRC32 (polynomial 0xEDB88320, zlib-compatible).
+The JAX package's ``constants.py`` holds the same values; tests pin the
+two together.
+"""
+
+# One block: unit of CRC protection and of striping.
+MFSBLOCKSIZE = 64 * 1024  # 65536
+
+# Blocks per chunk.
+MFSBLOCKSINCHUNK = 1024
+
+# One chunk: unit of replication / erasure coding (64 MiB).
+MFSCHUNKSIZE = MFSBLOCKSIZE * MFSBLOCKSINCHUNK
+
+# CRC32 polynomial (reflected), identical to zlib's crc32
+# (MFSCommunication.h:81).
+CRC_POLY = 0xEDB88320
+
+# GF(2^8) reduction polynomial used by the EC codec: x^8+x^4+x^3+x^2+1
+# (0x11d), identical to Intel ISA-L (src/common/galois_field_isal.cc:37-44).
+GF_POLY = 0x11D
+
+# EC parameter bounds (src/common/slice_traits.h:143-146).
+EC_MIN_DATA = 2
+EC_MAX_DATA = 32
+EC_MIN_PARITY = 1
+EC_MAX_PARITY = 32
+
+# XOR goal bounds (src/common/slice_traits.h:99-100).
+XOR_MIN_LEVEL = 2
+XOR_MAX_LEVEL = 9
