@@ -14,8 +14,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    four parts lost and rebuilt, checksummed and verified, and the chunk
    reassembled byte-identically, with every kernel's launch counter
    read around that run;
-5. times each kernel and its plain version with CUDA events and prints
-   one JSON line per kernel, the card, and a ``{"kernels": [...]}`` line;
+5. times each kernel and its plain version with CUDA events, and the
+   encoder's write and one-part rebuild end to end (numpy in and out),
+   and prints one JSON line per kernel and per path, the card, and a
+   ``{"kernels": [...]}`` line;
 6. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero.
@@ -282,6 +284,24 @@ def main() -> int:
             "bound_us": b_ms * 1e3, "bound_by": b_by, "launches": launches[name],
             "bytes": nbytes, "int8_ops": ops, "card": card,
         }))
+    # the encoder seam end to end: numpy in, pinned staging, kernels,
+    # numpy out (host clock around work that ends synchronised)
+    def wall_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return sorted(times)[reps // 2]
+
+    survivors = {i: parts[i] for i in range(K + M) if i != lost1}
+    for path, fn in (
+        ("encoder_write_64MiB", lambda: enc.encode_with_checksums(K, M, stripe, BS)),
+        ("encoder_rebuild_1_part", lambda: enc.recover(K, M, survivors, [lost1])),
+    ):
+        print(json.dumps({"path": path, "median_ms": wall_ms(fn), "reps": 5, "card": card}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
