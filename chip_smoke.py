@@ -40,6 +40,10 @@ ODD_N = 1_000_003  # a degraded-read length that is no multiple of anything
 SEED = 1234
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
+SCALAR_OPS_PER_S = 67e12  # H100 SXM 32-bit CUDA-core rate (float32; integer is no faster)
+CRC_OPS_PER_BYTE = 3  # slicing-by-8: a byte extract, a table load and an XOR per byte
+WINDOW_MS = 50.0  # each timing window lasts at least this long
+WINDOWS = 5  # timings report the median window
 SOURCE = "lizardfs_tpu_torch/ops/csrc/ec_kernels.cu"
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
@@ -231,9 +235,7 @@ def main() -> int:
         require(count >= 1, f"{name} launched on the main path")
 
     # -- phase 4: timing -------------------------------------------------
-    def time_ms(fn, iters):
-        fn()
-        torch.cuda.synchronize()
+    def window_ms(fn, iters):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -243,35 +245,45 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / iters
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    def time_ms(fn):
+        """Median per-call time over WINDOWS windows of >= WINDOW_MS each."""
+        fn()
+        torch.cuda.synchronize()
+        iters = max(1, int(np.ceil(WINDOW_MS / window_ms(fn, 3))))
+        return float(np.median([window_ms(fn, iters) for _ in range(WINDOWS)])), iters
+
+    def bound(nbytes, gf_ops, crc_ops):
+        # the GF apply at the int8 tensor-core rate (its bit-plane form),
+        # the CRC on the CUDA cores; the two units run side by side
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = max(gf_ops / INT8_OPS_PER_S, crc_ops / SCALAR_OPS_PER_S)
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
     rec_m, surv, expected = decode_cases[1]
     nb = PART // BS
-    crc_ops = 2 * 32 * 8  # bit-plane CRC: 8 bits in x 32 register bits per byte
-    work = {  # name: (kernel call, plain call, bytes, int8 ops of the bit-plane form)
+    gf_ops = 2 * 8 * M * 8 * K * PART  # int8 ops of the bit-plane product
+    work = {  # name: (kernel call, plain call, bytes, GF int8 ops, CRC scalar ops)
         "encode": (lambda: cuda_ec.encode(bigm, data),
                    lambda: torch_ec.apply_gf_bitmatrix(bigm, data),
-                   (K + M) * PART, 2 * 8 * M * 8 * K * PART),
+                   (K + M) * PART, gf_ops, 0),
         "block_crcs": (lambda: cuda_ec.block_crcs(blocks, BS),
                        lambda: torch_ec.block_crcs(blocks, BS),
-                       blocks.numel() + 4 * blocks.shape[0], crc_ops * blocks.numel()),
+                       blocks.numel() + 4 * blocks.shape[0], 0,
+                       CRC_OPS_PER_BYTE * blocks.numel()),
         "fused_encode_crc": (lambda: cuda_ec.fused_encode_crc(bigm, data, BS),
                              lambda: torch_ec.fused_encode_crc(bigm, data, BS),
-                             (K + M) * PART + 4 * (K + M) * nb,
-                             2 * 8 * M * 8 * K * PART + crc_ops * (K + M) * PART),
+                             (K + M) * PART + 4 * (K + M) * nb, gf_ops,
+                             CRC_OPS_PER_BYTE * (K + M) * PART),
         "fused_decode_verify": (lambda: cuda_ec.fused_decode_verify(rec_m, surv, expected, BS),
                                 lambda: torch_ec.fused_decode_verify(rec_m, surv, expected, BS),
-                                (K + 1) * PART + 9 * nb,
-                                2 * 8 * 1 * 8 * K * PART + crc_ops * PART),
+                                (K + 1) * PART + 9 * nb, gf_ops // M,
+                                CRC_OPS_PER_BYTE * PART),
     }
     rows = []
-    for name, (kernel, plain, nbytes, ops) in work.items():
-        k_ms = time_ms(kernel, 20)
-        p_ms = time_ms(plain, 3)
-        k_ms = min(k_ms, time_ms(kernel, 20))
-        b_ms, b_by = bound(nbytes, ops)
+    for name, (kernel, plain, nbytes, g_ops, c_ops) in work.items():
+        k_ms, k_iters = time_ms(kernel)
+        p_ms, p_iters = time_ms(plain)
+        b_ms, b_by = bound(nbytes, g_ops, c_ops)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
@@ -282,7 +294,9 @@ def main() -> int:
         print(json.dumps({
             "kernel": name, "kernel_ms": k_ms, "plain_ms": p_ms,
             "bound_us": b_ms * 1e3, "bound_by": b_by, "launches": launches[name],
-            "bytes": nbytes, "int8_ops": ops, "card": card,
+            "bytes": nbytes, "gf_int8_ops": g_ops, "crc_scalar_ops": c_ops,
+            "kernel_iters": k_iters, "plain_iters": p_iters, "windows": WINDOWS,
+            "card": card,
         }))
     # the encoder seam end to end: numpy in, pinned staging, kernels,
     # numpy out (host clock around work that ends synchronised)

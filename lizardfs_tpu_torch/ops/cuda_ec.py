@@ -25,7 +25,9 @@ import torch
 from lizardfs_tpu_torch.constants import EC_MAX_DATA, EC_MAX_PARITY, MFSBLOCKSIZE
 from lizardfs_tpu_torch.ops import _build, crc32, torch_ec
 
-# Kernel launches per wrapper, counted where each launches its kernel.
+# Kernel launches per wrapper, counted where each launches its kernel: one
+# per wrapper call that reached the card. The two fused wrappers launch two
+# kernels per call (the fused pass and its CRC fold) and count the call once.
 LAUNCHES = {
     "encode": 0,
     "block_crcs": 0,
