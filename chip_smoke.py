@@ -5,10 +5,14 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
 
 1. prints the card (``nvidia-smi``) and the torch/CUDA versions, and
    exits non-zero without a CUDA device;
-2. builds the kernels from ``lizardfs_tpu_torch/ops/csrc/``;
+2. builds the kernels from ``lizardfs_tpu_torch/ops/csrc/``; the
+   build passes ``nvcc -Xptxas -v``'s registers, shared memory and
+   spills of each kernel through to standard error;
 3. holds each of the four kernels byte for byte against its plain
    PyTorch version on the card, and one shape of each against the numpy
-   golden path, at the ec(8,4) 64 MiB chunk shapes;
+   golden path, at the ec(8,4) 64 MiB chunk shapes and at the other
+   geometries' edges (output row groups of one and three, the largest
+   tables at ec(32,32), small and ragged blocks);
 4. runs the main path through the entry points a user calls: a 64 MiB
    chunk striped at ec(8,4), encoded and checksummed, one part and then
    four parts lost and rebuilt, checksummed and verified, and the chunk
@@ -169,23 +173,34 @@ def main() -> int:
     for bs, count in ((64, 7), (4096, 33), (8192, 5)):
         b = rand_bytes(count, bs)
         same("block_crcs", cuda_ec.block_crcs(b, bs), torch_ec.block_crcs(b, bs), f"bs={bs}", crc=True)
-    for k, m, bs, nbk in ((3, 2, 4096, 3), (32, 32, BS, 2), (4, 2, 64, 9), (8, 4, 8192, 5)):
+    # the fused kernel's packed tables: ec(5,7) ends on a group of three
+    # parity rows, ec(2,1) and every one-part rebuild on a group of one,
+    # ec(32,32) carries the largest tables (8 groups of 32 input rows)
+    fused_cases = ((3, 2, 4096, 3), (32, 32, BS, 2), (4, 2, 64, 9), (8, 4, 8192, 5),
+                   (5, 7, BS, 2), (2, 1, 4096, 3))
+    for k, m, bs, nbk in fused_cases:
         g = torch.from_numpy(torch_ec.encoding_bitmatrix(k, m)).to(dev)
         x = rand_bytes(k, nbk * bs)
         got, want = cuda_ec.fused_encode_crc(g, x, bs), torch_ec.fused_encode_crc(g, x, bs)
         for part, (a, b) in enumerate(zip(got, want)):
             same("fused_encode_crc", a, b, f"ec({k},{m}) bs={bs} output {part}", crc=part > 0)
-        lost = list(range(0, k + m, max(1, (k + m) // m)))[:m]
-        have = [i for i in range(k + m) if i not in lost]
-        used, _ = gf256.recovery_selection(k, m, have, lost)
-        r = torch.from_numpy(torch_ec.recovery_bitmatrix(k, m, tuple(have), tuple(lost))).to(dev)
         full = torch.cat([x, got[0]])
-        exp = torch.cat([got[1], got[2]])[lost].contiguous()
-        surv = full[used].contiguous()
-        rec, rcrc, ok = cuda_ec.fused_decode_verify(r, surv, exp, bs)
-        same("fused_decode_verify", rec, full[lost], f"ec({k},{m}) bs={bs} lost {lost}")
-        same("fused_decode_verify", rcrc, exp, f"ec({k},{m}) bs={bs} CRCs", crc=True)
-        require(bool(ok.all()), f"ec({k},{m}) bs={bs}: every rebuilt block verifies")
+        for lost in (list(range(0, k + m, max(1, (k + m) // m)))[:m], [k // 2]):
+            have = [i for i in range(k + m) if i not in lost]
+            used, _ = gf256.recovery_selection(k, m, have, lost)
+            r = torch.from_numpy(
+                torch_ec.recovery_bitmatrix(k, m, tuple(have), tuple(lost))).to(dev)
+            exp = torch.cat([got[1], got[2]])[lost].contiguous()
+            surv = full[used].contiguous()
+            rec, rcrc, ok = cuda_ec.fused_decode_verify(r, surv, exp, bs)
+            wr, wrc, wok = torch_ec.fused_decode_verify(r, surv, exp, bs)
+            what = f"ec({k},{m}) bs={bs} lost {lost}"
+            same("fused_decode_verify", rec, wr, f"{what} recovered")
+            same("fused_decode_verify", rcrc, wrc, f"{what} CRCs", crc=True)
+            same("fused_decode_verify", ok, wok, f"{what} ok")
+            same("fused_decode_verify", rec, full[lost], what)
+            same("fused_decode_verify", rcrc, exp, f"{what} stored CRCs", crc=True)
+            require(bool(ok.all()), f"{what}: every rebuilt block verifies")
     torch.cuda.synchronize()
     print("kernels match their plain versions and the golden path")
 

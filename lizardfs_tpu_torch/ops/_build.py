@@ -4,7 +4,9 @@ The sources have a plain C interface and include no PyTorch header, so
 one ``nvcc`` call builds them in seconds. The library goes
 into ``build/`` beside this file (listed in ``.gitignore``), named by a
 hash of the sources and the flags, and is built at first use:
-importing this module builds nothing.
+importing this module builds nothing. ``-Xptxas -v`` makes the build
+report each kernel's registers, shared memory and spills; :func:`build`
+passes that report through to standard error.
 """
 
 from __future__ import annotations
@@ -15,13 +17,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -61,6 +64,7 @@ def build() -> Path:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"{' '.join(cmd)} failed ({res.returncode}):\n{res.stderr}")
+    sys.stderr.write(res.stdout + res.stderr)
     os.replace(tmp, out)
     return out
 
@@ -74,7 +78,7 @@ def library() -> ctypes.CDLL:
         "lz_gf_apply": [ptr, ptr, ptr, i32, i32, i64, i32, ptr],
         "lz_block_crcs": [ptr, i64, i32, i32, ptr, i32, u32, ptr, ptr],
         "lz_fused_encode_crc": [
-            ptr, ptr, i32, i32, i64, i32, i32, i32, ptr, i32, ptr, ptr, i32, ptr,
+            ptr, ptr, i32, i32, i64, i32, i32, i32, ptr, ptr, i32, ptr, ptr, i32, ptr,
         ],
         "lz_crc_fold": [ptr, i64, i32, ptr, u32, ptr, ptr, ptr, ptr],
     }

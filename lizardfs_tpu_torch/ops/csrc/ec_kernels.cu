@@ -46,15 +46,33 @@
 //  + crc_fold_kernel         pallas_call :527, finalize :567-579) and,
 //    driven by a recovery matrix with crc_inputs=0 and an expected-CRC
 //    array, `fused_decode_verify` (:590-615). Bound by bytes (data in
-//    once, parity out once) at the memory rate; counted as int8 bit-plane
-//    operations it is bound by those instead. Design: a 64 KiB block is
-//    split over `splits` CTAs (a 64 MiB ec(8,4) chunk has only 128 blocks,
-//    fewer than the 132 SMs), each CTA reads its slab of all k data rows
-//    once, writes the slab's parity once, and folds the raw CRC registers
-//    of all k+m rows of its slab in shared memory. crc_fold_kernel then
-//    folds the per-CTA registers of each (row, block) by Horner's rule
-//    with S^slab (the Pallas `comb` matrix), XORs K, and optionally
-//    compares with the stored CRCs.
+//    once, parity out once, 100.7 MB for an ec(8,4) 64 MiB chunk) at
+//    the memory rate. Layout: a 64 KiB block is split over `splits`
+//    slabs of 16 bytes a thread (a 64 MiB ec(8,4) chunk has only 128
+//    blocks, fewer than the 132 SMs); a CTA reads its slab of all k data
+//    rows once, writes the slab's parity once, and folds the raw CRC
+//    registers of all k+m rows of its slab in shared memory.
+//    crc_fold_kernel then folds the slab registers of each (row, block)
+//    by Horner's rule with S^slab (the Pallas `comb` matrix), XORs K,
+//    and optionally compares with the stored CRCs.
+//    What held the first design back was shared-memory issue work, not
+//    bytes: two byte loads per input byte per output row from
+//    per-(row, row) tables, a 32-step GF(2) column walk per CRC combine,
+//    and tables rebuilt by every CTA from the bit-plane matrix. This
+//    design reads only tables built on the host
+//    (lizardfs_tpu_torch/ops/kernel_tables.py), copied into shared
+//    memory with 16-byte loads and one barrier by each of a grid sized
+//    to the resident CTAs, which then walk the slabs:
+//     - one pair of 32-bit lookups per input byte serves four parity
+//       rows: table word byte g is output row 4q+g's product, the 16
+//       lo and 16 hi words of a row sit in one aligned run of 32 (16
+//       banks per lookup, no conflicts); 16 packed accumulators per
+//       thread are transposed into the four rows' bytes with __byte_perm
+//       only at the end;
+//     - a CRC combine is the XOR of 8 lookups in nibble tables of the
+//       shift (N[q][x] = S^n (x << 4q)) instead of 32 column steps;
+//       the registers of a row sit one word apart with one pad word per
+//       32, so the tree's strided pairs hit distinct banks.
 
 #include <cuda_runtime.h>
 
@@ -64,6 +82,9 @@ namespace {
 
 constexpr uint32_t kCrcPoly = 0xEDB88320u;
 constexpr int kMaxLevels = 8;  // log2 of the largest CTA (256 threads)
+constexpr int kCrcTableWords = 8 * 256;  // slicing-by-8 tables
+constexpr int kShiftWords = 8 * 16;      // one shift as 8 nibble tables
+constexpr int kGfRowWords = 32;          // 16 lo + 16 hi packed words
 
 // ---------------------------------------------------------------------------
 // Device function 1: GF(2) matrix apply through split-nibble tables.
@@ -182,6 +203,81 @@ __device__ void crc_tree(uint32_t* regs, int rows, int T,
 }
 
 // ---------------------------------------------------------------------------
+// Device function 3 (fused kernel): host-built tables, packed GF lookups
+// and table-driven CRC shifts.
+// ---------------------------------------------------------------------------
+
+// dst[0:words] = src[0:words] with 16-byte loads; words % 4 == 0 and both
+// pointers 16-byte aligned. The caller synchronises.
+__device__ __forceinline__ void copy_table(uint32_t* dst,
+                                           const uint32_t* __restrict__ src,
+                                           int words) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < words / 4; i += blockDim.x) d[i] = s[i];
+}
+
+// acc[4 * w + p] ^= the packed products of byte p of word w of x: t[0:16]
+// are the lo-nibble words, t[16:32] the hi-nibble words of one input row.
+__device__ __forceinline__ void xor_packed(uint32_t (&acc)[16],
+                                           const uint32_t* t, const uint4 x) {
+  const uint32_t words[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t b = words[w] >> (8 * p);
+      acc[4 * w + p] ^= t[b & 15u] ^ t[16u + ((b >> 4) & 15u)];
+    }
+  }
+}
+
+// 4x4 byte transpose: byte p of o[g] = byte g of a[p].
+__device__ __forceinline__ void transpose4(const uint32_t* a, uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(a[0], a[1], 0x5140);  // a0.b0 a1.b0 a0.b1 a1.b1
+  const uint32_t t1 = __byte_perm(a[2], a[3], 0x5140);  // a2.b0 a3.b0 a2.b1 a3.b1
+  const uint32_t t2 = __byte_perm(a[0], a[1], 0x7362);  // a0.b2 a1.b2 a0.b3 a1.b3
+  const uint32_t t3 = __byte_perm(a[2], a[3], 0x7362);  // a2.b2 a3.b2 a2.b3 a3.b3
+  o[0] = __byte_perm(t0, t1, 0x5410);
+  o[1] = __byte_perm(t0, t1, 0x7632);
+  o[2] = __byte_perm(t2, t3, 0x5410);
+  o[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// S v for a shift S given as 8 nibble tables: t[16 q + x] = S (x << 4q).
+__device__ __forceinline__ uint32_t shift_nibbles(const uint32_t* t, uint32_t v) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) out ^= t[16 * q + ((v >> (4 * q)) & 15u)];
+  return out;
+}
+
+// Word offset of span register t in a row: one pad word per 32, so that
+// the tree's pairs at strides of 2..32 words fall in distinct banks.
+__host__ __device__ inline int span_slot(int t) { return t + (t >> 5); }
+
+// crc_tree with the shifts as nibble tables (level_tabs + kShiftWords * l
+// shifts by the length of 2^l spans) and rows `stride` words apart in the
+// span_slot layout; T = 2^levels spans a row. On return regs[row *
+// stride] is the register of the whole row. Entry and exit are
+// synchronised.
+__device__ void crc_tree_nibbles(uint32_t* regs, int rows, int stride,
+                                 int levels, const uint32_t* level_tabs) {
+  for (int l = 0; l < levels; ++l) {
+    const int lp = levels - 1 - l;  // log2 of the pairs in a row
+    const uint32_t* tab = level_tabs + kShiftWords * l;
+    for (int e = threadIdx.x; e < (rows << lp); e += blockDim.x) {
+      const int row = e >> lp;
+      const int left = (e - (row << lp)) << (l + 1);
+      uint32_t* r = regs + row * stride;
+      r[span_slot(left)] =
+          shift_nibbles(tab, r[span_slot(left)]) ^ r[span_slot(left + (1 << l))];
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Kernels.
 // ---------------------------------------------------------------------------
 
@@ -258,77 +354,88 @@ __global__ void block_crc_kernel(const uint8_t* __restrict__ blocks,
   }
 }
 
-// One CTA per (block, split): columns [blk*bs + s*T*16, +T*16) of the k
-// data rows. Writes the slab's parity and regs_out[(row, blk, s)] = raw
-// CRC register of the slab of each row (rows 0..k-1 data, k..k+m-1 parity;
-// data rows only when crc_inputs). level_cols (levels, 32) shifts by
+// Slab c of the grid-stride walk covers columns [blk*bs + s*T*16, +T*16)
+// of the k data rows, c = blk * splits + s. Writes the slab's parity and
+// regs_out[(row, blk, s)] = raw CRC register of the slab of each row
+// (rows 0..k-1 data, k..k+m-1 parity; data rows only when crc_inputs).
+// gf_tabs (ceil(m/4), k, 32), crc_tabs (8, 256) and level_tabs (levels,
+// 8, 16) are the host-built tables of kernel_tables.py; level l shifts by
 // 16 * 2^l bytes.
-__global__ void fused_encode_crc_kernel(
-    const int8_t* __restrict__ bigm, const uint8_t* __restrict__ data, int k,
-    int m, long long n, int bs, int splits,
-    const uint32_t* __restrict__ level_cols, int levels,
+__global__ void __launch_bounds__(256) fused_encode_crc_kernel(
+    const uint32_t* __restrict__ gf_tabs, const uint8_t* __restrict__ data,
+    int k, int m, long long n, int bs, int splits,
+    const uint32_t* __restrict__ crc_tabs,
+    const uint32_t* __restrict__ level_tabs, int levels,
     uint8_t* __restrict__ parity, uint32_t* __restrict__ regs_out,
     int crc_inputs) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t(*tabs)[256] = reinterpret_cast<uint32_t(*)[256]>(smem);
-  uint32_t* cols = reinterpret_cast<uint32_t*>(smem + 8 * 256 * 4);
-  uint32_t* regs = cols + kMaxLevels * 32;
+  extern __shared__ uint4 smem[];
+  uint32_t* const sm = reinterpret_cast<uint32_t*>(smem);
+  const int groups = (m + 3) / 4;
+  uint32_t* const lvl = sm + kCrcTableWords;
+  uint32_t* const gf = lvl + levels * kShiftWords;
+  uint32_t* const regs = gf + groups * k * kGfRowWords;
+  copy_table(sm, crc_tabs, kCrcTableWords);
+  copy_table(lvl, level_tabs, levels * kShiftWords);
+  copy_table(gf, gf_tabs, groups * k * kGfRowWords);
+  __syncthreads();
+  const uint32_t(*tabs)[256] = reinterpret_cast<const uint32_t(*)[256]>(sm);
   const int T = blockDim.x;
+  const int stride = span_slot(T);
+  const int slot = span_slot(threadIdx.x);
   const int rows = k + m;
-  uint8_t* nib = reinterpret_cast<uint8_t*>(regs + rows * T);
-  build_nibble_tables(bigm, m, k, nib);
-  for (int e = threadIdx.x; e < levels * 32; e += blockDim.x) cols[e] = level_cols[e];
-  build_crc_tables(tabs);  // ends synchronised: nib and cols are visible
   const int row0 = crc_inputs ? 0 : k;
   const long long nb = n / bs;
-  for (long long cta = blockIdx.x; cta < nb * splits; cta += gridDim.x) {
-    const long long blk = cta / splits;
-    const int s = static_cast<int>(cta - blk * splits);
+  for (long long c = blockIdx.x; c < nb * splits; c += gridDim.x) {
+    const long long blk = c / splits;
+    const int s = static_cast<int>(c - blk * splits);
     const long long col = blk * bs + static_cast<long long>(s) * T * 16 + threadIdx.x * 16;
-    for (int i0 = 0; i0 < m; i0 += 4) {
-      uint4 acc[4];
+    for (int q = 0; q < groups; ++q) {
+      uint32_t acc[16];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[g] = make_uint4(0, 0, 0, 0);
+      for (int b = 0; b < 16; ++b) acc[b] = 0;
       for (int j = 0; j < k; ++j) {
         const uint4 x = *reinterpret_cast<const uint4*>(data + j * n + col);
-        if (i0 == 0 && crc_inputs) regs[j * T + threadIdx.x] = crc_raw16(tabs, 0u, x);
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          if (i0 + g < m) xor_gf_vec(acc[g], nib + ((i0 + g) * k + j) * 32, x);
+        if (q == 0 && crc_inputs) regs[j * stride + slot] = crc_raw16(tabs, 0u, x);
+        xor_packed(acc, gf + (q * k + j) * kGfRowWords, x);
       }
+      uint32_t out[4][4];  // [word of the 16 bytes][output row of the group]
+#pragma unroll
+      for (int w = 0; w < 4; ++w) transpose4(acc + 4 * w, out[w]);
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        if (i0 + g < m) {
-          *reinterpret_cast<uint4*>(parity + (i0 + g) * n + col) = acc[g];
-          regs[(k + i0 + g) * T + threadIdx.x] = crc_raw16(tabs, 0u, acc[g]);
+        const int row = 4 * q + g;
+        if (row < m) {
+          const uint4 v = make_uint4(out[0][g], out[1][g], out[2][g], out[3][g]);
+          *reinterpret_cast<uint4*>(parity + row * n + col) = v;
+          regs[(k + row) * stride + slot] = crc_raw16(tabs, 0u, v);
         }
       }
     }
     __syncthreads();
-    crc_tree(regs + row0 * T, rows - row0, T, cols, levels);
+    crc_tree_nibbles(regs + row0 * stride, rows - row0, stride, levels, lvl);
     for (int row = row0 + threadIdx.x; row < rows; row += T)
-      regs_out[(row * nb + blk) * splits + s] = regs[row * T];
+      regs_out[(row * nb + blk) * splits + s] = regs[row * stride];
     __syncthreads();
   }
 }
 
 // out[e] = K ^ fold of regs[e, 0:splits] (slab registers, first slab
-// first) with slab_cols = S^slab; ok[e] = out[e] == expected[e] when ok is
-// given.
+// first) with slab_tab = S^slab as nibble tables (8, 16); ok[e] = out[e]
+// == expected[e] when ok is given. blockDim.x >= kShiftWords.
 __global__ void crc_fold_kernel(const uint32_t* __restrict__ regs,
                                 long long count, int splits,
-                                const uint32_t* __restrict__ slab_cols,
+                                const uint32_t* __restrict__ slab_tab,
                                 uint32_t k_const, uint32_t* __restrict__ out,
                                 const uint32_t* __restrict__ expected,
                                 uint8_t* __restrict__ ok) {
-  __shared__ uint32_t cols[32];
-  if (threadIdx.x < 32) cols[threadIdx.x] = slab_cols[threadIdx.x];
+  __shared__ uint32_t tab[kShiftWords];
+  if (threadIdx.x < kShiftWords) tab[threadIdx.x] = slab_tab[threadIdx.x];
   __syncthreads();
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        e < count; e += stride) {
     uint32_t reg = 0;
-    for (int s = 0; s < splits; ++s) reg = gf2_apply(cols, reg) ^ regs[e * splits + s];
+    for (int s = 0; s < splits; ++s) reg = shift_nibbles(tab, reg) ^ regs[e * splits + s];
     const uint32_t crc = reg ^ k_const;
     out[e] = crc;
     if (ok != nullptr) ok[e] = crc == expected[e];
@@ -338,6 +445,16 @@ __global__ void crc_fold_kernel(const uint32_t* __restrict__ regs,
 long long grid_for(long long units, int threads, long long cap) {
   long long g = (units + threads - 1) / threads;
   return g < 1 ? 1 : (g > cap ? cap : g);
+}
+
+// Shared memory of fused_encode_crc_kernel in bytes: the CRC tables, the
+// tree's shift tables, the packed GF tables, then k + m rows of span
+// registers in the span_slot layout.
+size_t fused_smem_bytes(int k, int m, int threads, int levels) {
+  const size_t groups = (m + 3) / 4;
+  return 4 * (kCrcTableWords + static_cast<size_t>(levels) * kShiftWords +
+              groups * k * kGfRowWords +
+              static_cast<size_t>(k + m) * span_slot(threads));
 }
 
 }  // namespace
@@ -377,37 +494,44 @@ int lz_block_crcs(const void* blocks, long long nblocks, int bs, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
-int lz_fused_encode_crc(const void* bigm, const void* data, int k, int m,
+int lz_fused_encode_crc(const void* gf_tabs, const void* data, int k, int m,
                         long long n, int bs, int threads, int splits,
-                        const void* level_cols, int levels, void* parity,
-                        void* regs, int crc_inputs, void* stream) {
-  const size_t smem = 8 * 256 * 4 + kMaxLevels * 32 * 4 +
-                      static_cast<size_t>(k + m) * threads * 4 +
-                      static_cast<size_t>(m) * k * 32;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_encode_crc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+                        const void* crc_tabs, const void* level_tabs, int levels,
+                        void* parity, void* regs, int crc_inputs, void* stream) {
+  const size_t smem = fused_smem_bytes(k, m, threads, levels);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_encode_crc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  // a grid of the CTAs that fit on the card at once: each copies the
+  // tables once and walks slabs
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_encode_crc_kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long ctas = (n / bs) * splits;
-  const long long grid = ctas < 65536 ? ctas : 65536;
+  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const long long grid = ctas < resident ? ctas : resident;
   fused_encode_crc_kernel<<<static_cast<unsigned>(grid), threads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(bigm), static_cast<const uint8_t*>(data), k,
-      m, n, bs, splits, static_cast<const uint32_t*>(level_cols), levels,
+      static_cast<const uint32_t*>(gf_tabs), static_cast<const uint8_t*>(data),
+      k, m, n, bs, splits, static_cast<const uint32_t*>(crc_tabs),
+      static_cast<const uint32_t*>(level_tabs), levels,
       static_cast<uint8_t*>(parity), static_cast<uint32_t*>(regs), crc_inputs);
   return static_cast<int>(cudaGetLastError());
 }
 
 int lz_crc_fold(const void* regs, long long count, int splits,
-                const void* slab_cols, unsigned int k_const, void* out,
+                const void* slab_tab, unsigned int k_const, void* out,
                 const void* expected, void* ok, void* stream) {
   const int threads = 256;
   const long long grid = grid_for(count, threads, 65536);
   crc_fold_kernel<<<static_cast<unsigned>(grid), threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(regs), count, splits,
-      static_cast<const uint32_t*>(slab_cols), k_const,
+      static_cast<const uint32_t*>(slab_tab), k_const,
       static_cast<uint32_t*>(out), static_cast<const uint32_t*>(expected),
       static_cast<uint8_t*>(ok));
   return static_cast<int>(cudaGetLastError());

@@ -18,12 +18,13 @@ tensors holding the uint32 bits (see ``torch_ec``).
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
 
 from lizardfs_tpu_torch.constants import EC_MAX_DATA, EC_MAX_PARITY, MFSBLOCKSIZE
-from lizardfs_tpu_torch.ops import _build, crc32, torch_ec
+from lizardfs_tpu_torch.ops import _build, crc32, kernel_tables, torch_ec
 
 # Kernel launches per wrapper, counted where each launches its kernel: one
 # per wrapper call that reached the card. The two fused wrappers launch two
@@ -118,6 +119,49 @@ def _shift_table(nbytes: tuple[int, ...], device: torch.device) -> torch.Tensor:
     return torch.from_numpy(cols.view(np.int32)).to(device)
 
 
+def _words(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A uint32 table as an int32 tensor of the same bits on ``device``."""
+    return torch.from_numpy(np.array(table, dtype=np.uint32).view(np.int32)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _crc_table(device: torch.device) -> torch.Tensor:
+    """(8, 256) slicing-by-8 CRC tables on ``device``."""
+    return _words(kernel_tables.crc_slicing_tables(), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_nibble_table(nbytes: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """(len(nbytes), 8, 16) nibble tables of S^n for each n, on ``device``."""
+    return _words(np.stack([kernel_tables.shift_nibble_tables(n) for n in nbytes]), device)
+
+
+@functools.lru_cache(maxsize=256)
+def _gf_table(matrix: bytes, shape: tuple[int, int], device: torch.device) -> torch.Tensor:
+    """Packed GF tables of a bit-plane matrix given by its bytes, on ``device``."""
+    bigm = np.frombuffer(matrix, dtype=np.int8).reshape(shape)
+    return _words(kernel_tables.packed_gf_tables(bigm), device)
+
+
+# Packed GF tables of the matrix tensors the fused wrappers were given:
+# id(tensor) -> (weak reference, version counter, table). A matrix on the
+# card is read back (which waits for the card) only the first time it is
+# seen and after it was written in place.
+_MATRIX_TABLES: dict[int, tuple[weakref.ref, int, torch.Tensor]] = {}
+
+
+def _gf_tables_for(bigm: torch.Tensor) -> torch.Tensor:
+    key = id(bigm)
+    hit = _MATRIX_TABLES.get(key)
+    if hit is not None and hit[0]() is bigm and hit[1] == bigm._version:
+        return hit[2]
+    host = bigm.cpu().numpy()
+    table = _gf_table(host.tobytes(), host.shape, bigm.device)
+    ref = weakref.ref(bigm, lambda _ref: _MATRIX_TABLES.pop(key, None))
+    _MATRIX_TABLES[key] = (ref, bigm._version, table)
+    return table
+
+
 def encode(bigm: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """GF(2^8) matrix apply: (r, N) uint8 -> (w, N) uint8 for an (8w, 8r)
     bit-plane matrix; encode or recover, as the matrix says. Any N."""
@@ -191,8 +235,9 @@ def _fused_launch(bigm, data, block_size, expected=None):
     slab = threads * _VEC
     splits = block_size // slab
     levels = threads.bit_length() - 1
-    cols = _shift_table(tuple(_VEC << l for l in range(levels)), dev)
-    slab_cols = _shift_table((slab,), dev)
+    gf_tabs = _gf_tables_for(bigm)
+    level_tabs = _shift_nibble_table(tuple(_VEC << l for l in range(levels)), dev)
+    slab_tab = _shift_nibble_table((slab,), dev)
     crc_inputs = expected is None
     rows = r + w
     out = torch.empty((w, n), dtype=torch.uint8, device=dev)
@@ -203,11 +248,12 @@ def _fused_launch(bigm, data, block_size, expected=None):
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = _stream(data)
-        _launch("fused_encode_crc", lib.lz_fused_encode_crc, bigm.data_ptr(),
-                data.data_ptr(), r, w, n, block_size, threads, splits, cols.data_ptr(),
-                levels, out.data_ptr(), regs.data_ptr(), int(crc_inputs), stream)
+        _launch("fused_encode_crc", lib.lz_fused_encode_crc, gf_tabs.data_ptr(),
+                data.data_ptr(), r, w, n, block_size, threads, splits,
+                _crc_table(dev).data_ptr(), level_tabs.data_ptr(), levels,
+                out.data_ptr(), regs.data_ptr(), int(crc_inputs), stream)
         _launch("crc_fold", lib.lz_crc_fold, regs[rows - folded:].data_ptr(),
-                folded * nb, splits, slab_cols.data_ptr(),
+                folded * nb, splits, slab_tab.data_ptr(),
                 crc32.zeros_crc(block_size), crcs.data_ptr(),
                 None if crc_inputs else expected.data_ptr(),
                 None if crc_inputs else ok.data_ptr(), stream)
