@@ -294,9 +294,21 @@ def main() -> int:
                                 (K + 1) * PART + 9 * nb, gf_ops // M,
                                 CRC_OPS_PER_BYTE * PART),
     }
+    def host_ms(fn, iters):
+        """Host time per call, not waiting for the card: where it comes
+        near the kernel time, the card waited for the host."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        ms = (time.perf_counter() - t) * 1e3 / iters
+        torch.cuda.synchronize()
+        return ms
+
     rows = []
     for name, (kernel, plain, nbytes, g_ops, c_ops) in work.items():
         k_ms, k_iters = time_ms(kernel)
+        h_ms = host_ms(kernel, k_iters)
         p_ms, p_iters = time_ms(plain)
         b_ms, b_by = bound(nbytes, g_ops, c_ops)
         rows.append({
@@ -307,7 +319,7 @@ def main() -> int:
             "match": err[name] == 0,
         })
         print(json.dumps({
-            "kernel": name, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "kernel": name, "kernel_ms": k_ms, "host_ms": h_ms, "plain_ms": p_ms,
             "bound_us": b_ms * 1e3, "bound_by": b_by, "launches": launches[name],
             "bytes": nbytes, "gf_int8_ops": g_ops, "crc_scalar_ops": c_ops,
             "kernel_iters": k_iters, "plain_iters": p_iters, "windows": WINDOWS,

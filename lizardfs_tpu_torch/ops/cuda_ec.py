@@ -125,9 +125,9 @@ def _words(table: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def _crc_table(device: torch.device) -> torch.Tensor:
-    """(8, 256) slicing-by-8 CRC tables on ``device``."""
-    return _words(kernel_tables.crc_slicing_tables(), device)
+def _span_crc_table(device: torch.device) -> torch.Tensor:
+    """(32, 16) nibble tables of a 16-byte span's raw CRC, on ``device``."""
+    return _words(kernel_tables.span_crc_tables(_VEC), device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -250,7 +250,7 @@ def _fused_launch(bigm, data, block_size, expected=None):
         stream = _stream(data)
         _launch("fused_encode_crc", lib.lz_fused_encode_crc, gf_tabs.data_ptr(),
                 data.data_ptr(), r, w, n, block_size, threads, splits,
-                _crc_table(dev).data_ptr(), level_tabs.data_ptr(), levels,
+                _span_crc_table(dev).data_ptr(), level_tabs.data_ptr(), levels,
                 out.data_ptr(), regs.data_ptr(), int(crc_inputs), stream)
         _launch("crc_fold", lib.lz_crc_fold, regs[rows - folded:].data_ptr(),
                 folded * nb, splits, slab_tab.data_ptr(),
