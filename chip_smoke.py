@@ -29,7 +29,10 @@ Any failed phase raises, so the script exits non-zero.
 
 from __future__ import annotations
 
+import collections
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -70,6 +73,30 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def sass_mix(library: str, kernel: str) -> dict | None:
+    """Instruction counts of one kernel in the built library, from
+    ``cuobjdump -sass``: all, by opcode (the 12 most frequent), and of
+    each loop (a backward branch) in code order. None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    body = re.search(r"Function : \S*" + kernel + r"(.*?)(?=\n\s*Function :|\Z)", sass, re.S)
+    if body is None:
+        return None
+    code = re.findall(r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*)",
+                      body.group(1))
+    ops = collections.Counter(op.split(".")[0] for _, op, _ in code)
+    loops = []
+    for addr, op, args in code:
+        target = re.match(r"0x([0-9a-f]+)", args.strip())
+        if op.startswith("BRA") and target and int(target.group(1), 16) < int(addr, 16):
+            loops.append((int(addr, 16) - int(target.group(1), 16)) // 16 + 1)
+    return {"instructions": len(code), "ops": dict(ops.most_common(12)), "loops": loops}
+
+
 def main() -> int:
     import torch
 
@@ -95,6 +122,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.3f} s ({_build.library_path().name})")
+    for kernel in ("fused_encode_crc_kernel", "crc_fold_kernel"):
+        print(json.dumps({"sass": kernel, **(sass_mix(str(_build.library_path()), kernel) or {})}))
 
     # -- phase 2: each kernel against its plain version and the golden ----
     gen = torch.Generator(device=dev).manual_seed(SEED)

@@ -69,9 +69,6 @@
 //       banks per lookup, no conflicts); 16 packed accumulators per
 //       thread are transposed into the four rows' bytes with __byte_perm
 //       only at the end;
-//     - a 16-byte span's raw CRC register is the XOR of 32 independent
-//       lookups, one per nibble, in 16-word tables (16 banks each), not
-//       a chain of slicing-by-8 loads that conflict in 256-word tables;
 //     - a CRC combine is the XOR of 8 lookups in nibble tables of the
 //       shift (N[q][x] = S^n (x << 4q)) instead of 32 column steps;
 //       the registers of a row sit one word apart with one pad word per
@@ -85,7 +82,7 @@ namespace {
 
 constexpr uint32_t kCrcPoly = 0xEDB88320u;
 constexpr int kMaxLevels = 8;  // log2 of the largest CTA (256 threads)
-constexpr int kSpanCrcWords = 32 * 16;  // a 16-byte span's CRC, per nibble
+constexpr int kCrcTableWords = 8 * 256;  // slicing-by-8 tables
 constexpr int kShiftWords = 8 * 16;      // one shift as 8 nibble tables
 constexpr int kGfRowWords = 32;          // 16 lo + 16 hi packed words
 
@@ -247,24 +244,6 @@ __device__ __forceinline__ void transpose4(const uint32_t* a, uint32_t (&o)[4]) 
   o[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-// Raw CRC register, from zero, of the 16 bytes of x: t[16 (2p + h) + n] is
-// the register of a span that is zero but for byte p = n << 4h. The 32
-// lookups are independent and each reads 16 words in 16 banks.
-__device__ __forceinline__ uint32_t span_crc(const uint32_t* t, const uint4 x) {
-  const uint32_t words[4] = {x.x, x.y, x.z, x.w};
-  uint32_t out = 0;
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const uint32_t b = words[w] >> (8 * p);
-      const int nib = 2 * (4 * w + p);
-      out ^= t[16 * nib + (b & 15u)] ^ t[16 * (nib + 1) + ((b >> 4) & 15u)];
-    }
-  }
-  return out;
-}
-
 // S v for a shift S given as 8 nibble tables: t[16 q + x] = S (x << 4q).
 __device__ __forceinline__ uint32_t shift_nibbles(const uint32_t* t, uint32_t v) {
   uint32_t out = 0;
@@ -379,7 +358,7 @@ __global__ void block_crc_kernel(const uint8_t* __restrict__ blocks,
 // of the k data rows, c = blk * splits + s. Writes the slab's parity and
 // regs_out[(row, blk, s)] = raw CRC register of the slab of each row
 // (rows 0..k-1 data, k..k+m-1 parity; data rows only when crc_inputs).
-// gf_tabs (ceil(m/4), k, 32), crc_tabs (32, 16) and level_tabs (levels,
+// gf_tabs (ceil(m/4), k, 32), crc_tabs (8, 256) and level_tabs (levels,
 // 8, 16) are the host-built tables of kernel_tables.py; level l shifts by
 // 16 * 2^l bytes.
 __global__ void __launch_bounds__(256) fused_encode_crc_kernel(
@@ -392,13 +371,14 @@ __global__ void __launch_bounds__(256) fused_encode_crc_kernel(
   extern __shared__ uint4 smem[];
   uint32_t* const sm = reinterpret_cast<uint32_t*>(smem);
   const int groups = (m + 3) / 4;
-  uint32_t* const lvl = sm + kSpanCrcWords;
+  uint32_t* const lvl = sm + kCrcTableWords;
   uint32_t* const gf = lvl + levels * kShiftWords;
   uint32_t* const regs = gf + groups * k * kGfRowWords;
-  copy_table(sm, crc_tabs, kSpanCrcWords);
+  copy_table(sm, crc_tabs, kCrcTableWords);
   copy_table(lvl, level_tabs, levels * kShiftWords);
   copy_table(gf, gf_tabs, groups * k * kGfRowWords);
   __syncthreads();
+  const uint32_t(*tabs)[256] = reinterpret_cast<const uint32_t(*)[256]>(sm);
   const int T = blockDim.x;
   const int stride = span_slot(T);
   const int slot = span_slot(threadIdx.x);
@@ -415,7 +395,7 @@ __global__ void __launch_bounds__(256) fused_encode_crc_kernel(
       for (int b = 0; b < 16; ++b) acc[b] = 0;
       for (int j = 0; j < k; ++j) {
         const uint4 x = *reinterpret_cast<const uint4*>(data + j * n + col);
-        if (q == 0 && crc_inputs) regs[j * stride + slot] = span_crc(sm, x);
+        if (q == 0 && crc_inputs) regs[j * stride + slot] = crc_raw16(tabs, 0u, x);
         xor_packed(acc, gf + (q * k + j) * kGfRowWords, x);
       }
       uint32_t out[4][4];  // [word of the 16 bytes][output row of the group]
@@ -427,7 +407,7 @@ __global__ void __launch_bounds__(256) fused_encode_crc_kernel(
         if (row < m) {
           const uint4 v = make_uint4(out[0][g], out[1][g], out[2][g], out[3][g]);
           *reinterpret_cast<uint4*>(parity + row * n + col) = v;
-          regs[(k + row) * stride + slot] = span_crc(sm, v);
+          regs[(k + row) * stride + slot] = crc_raw16(tabs, 0u, v);
         }
       }
     }
@@ -467,12 +447,12 @@ long long grid_for(long long units, int threads, long long cap) {
   return g < 1 ? 1 : (g > cap ? cap : g);
 }
 
-// Shared memory of fused_encode_crc_kernel in bytes: the span CRC tables,
-// the tree's shift tables, the packed GF tables, then k + m rows of span
+// Shared memory of fused_encode_crc_kernel in bytes: the CRC tables, the
+// tree's shift tables, the packed GF tables, then k + m rows of span
 // registers in the span_slot layout.
 size_t fused_smem_bytes(int k, int m, int threads, int levels) {
   const size_t groups = (m + 3) / 4;
-  return 4 * (kSpanCrcWords + static_cast<size_t>(levels) * kShiftWords +
+  return 4 * (kCrcTableWords + static_cast<size_t>(levels) * kShiftWords +
               groups * k * kGfRowWords +
               static_cast<size_t>(k + m) * span_slot(threads));
 }

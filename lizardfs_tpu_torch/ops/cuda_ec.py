@@ -105,11 +105,8 @@ def _gf_dims(bigm: torch.Tensor, parts: torch.Tensor) -> tuple[int, int]:
     return w, r
 
 
-def shift_columns(matrix: np.ndarray) -> np.ndarray:
-    """A 32x32 GF(2) matrix as 32 column words (bit i of word c = M[i, c])."""
-    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
-    cols = (np.asarray(matrix, dtype=np.uint64) * weights[:, None]).sum(axis=0)
-    return cols.astype(np.uint32)
+# a 32x32 GF(2) matrix as the 32 column words block_crc_kernel applies
+shift_columns = kernel_tables.column_words
 
 
 @functools.lru_cache(maxsize=64)
@@ -125,9 +122,9 @@ def _words(table: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def _span_crc_table(device: torch.device) -> torch.Tensor:
-    """(32, 16) nibble tables of a 16-byte span's raw CRC, on ``device``."""
-    return _words(kernel_tables.span_crc_tables(_VEC), device)
+def _crc_table(device: torch.device) -> torch.Tensor:
+    """(8, 256) slicing-by-8 CRC tables on ``device``."""
+    return _words(kernel_tables.crc_slicing_tables(), device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -250,7 +247,7 @@ def _fused_launch(bigm, data, block_size, expected=None):
         stream = _stream(data)
         _launch("fused_encode_crc", lib.lz_fused_encode_crc, gf_tabs.data_ptr(),
                 data.data_ptr(), r, w, n, block_size, threads, splits,
-                _span_crc_table(dev).data_ptr(), level_tabs.data_ptr(), levels,
+                _crc_table(dev).data_ptr(), level_tabs.data_ptr(), levels,
                 out.data_ptr(), regs.data_ptr(), int(crc_inputs), stream)
         _launch("crc_fold", lib.lz_crc_fold, regs[rows - folded:].data_ptr(),
                 folded * nb, splits, slab_tab.data_ptr(),

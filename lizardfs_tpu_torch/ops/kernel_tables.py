@@ -10,9 +10,7 @@ shared memory with 16-byte loads; no CTA derives a table itself.
   32. Byte g of ``lo[n]`` is the GF(2^8) product of output row 4q+g's
   coefficient for row j with the nibble n, of ``hi[n]`` the same with
   n << 4. One 32-bit lookup pair then serves four output rows.
-* :func:`span_crc_tables`: the raw CRC32 register of a 16-byte span
-  as one 16-word table per nibble of the span, so that a span's
-  register is the XOR of 32 lookups that do not depend on each other.
+* :func:`crc_slicing_tables`: the slicing-by-8 CRC32 tables.
 * :func:`shift_nibble_tables`: S^n (the raw CRC register shifted by n
   zero bytes, :func:`crc32.shift_matrix`) as 8 tables of 16 words,
   ``N[q][x] = S^n (x << 4q)``, so that S^n v is the XOR of 8 lookups.
@@ -31,6 +29,8 @@ from lizardfs_tpu_torch.ops import crc32
 
 ROWS_PER_GROUP = 4  # output rows packed into one 32-bit table word
 WORDS_PER_ROW = 32  # 16 lo + 16 hi words per (group, input row)
+NIBBLES = 8  # nibbles of a 32-bit CRC register
+SHIFT_WORDS = NIBBLES * 16  # words of one shift table
 
 
 def nibble_products(bigm: np.ndarray) -> np.ndarray:
@@ -74,33 +74,33 @@ def packed_gf_tables(bigm: np.ndarray) -> np.ndarray:
     return np.bitwise_or.reduce(padded << shifts, axis=1).astype(np.uint32)
 
 
-def _nibble_tables(cols: np.ndarray) -> np.ndarray:
-    """A GF(2)-linear map given by its column words (column 4q + b is
-    the image of bit b of nibble q) -> (nibbles, 16) uint32 tables,
-    ``[q, x]`` = the image of nibble q set to x."""
-    cols = np.asarray(cols, dtype=np.uint32).reshape(-1, 4)
+@functools.lru_cache(maxsize=1)
+def crc_slicing_tables() -> np.ndarray:
+    """(8, 256) uint32 slicing-by-8 tables: t[0] is the reflected byte
+    table, t[s][i] = (t[s-1][i] >> 8) ^ t[0][t[s-1][i] & 0xff]."""
+    t = np.zeros((8, 256), dtype=np.uint32)
+    t[0] = crc32._byte_table()  # the port's copy of the reference table
+    for s in range(1, 8):
+        prev = t[s - 1]
+        t[s] = (prev >> 8) ^ t[0, prev & 0xFF]
+    t.setflags(write=False)
+    return t
+
+
+def column_words(matrix: np.ndarray) -> np.ndarray:
+    """A (32, c) GF(2) matrix as c column words (bit i of word c = M[i, c])."""
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    cols = (np.asarray(matrix, dtype=np.uint64) * weights[:, None]).sum(axis=0)
+    return cols.astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=64)
+def shift_nibble_tables(nbytes: int) -> np.ndarray:
+    """(8, 16) uint32: ``[q, x]`` = S^nbytes applied to x << 4q, the XOR
+    of the column words of the bits set in x."""
+    cols = column_words(crc32.shift_matrix(nbytes)).reshape(NIBBLES, 4)
     select = ((np.arange(16)[:, None] >> np.arange(4)) & 1).astype(np.uint32)
     out = np.bitwise_xor.reduce(cols[:, None, :] * select[None, :, :], axis=-1)
     out = out.astype(np.uint32)
     out.setflags(write=False)
     return out
-
-
-def _column_words(matrix: np.ndarray) -> np.ndarray:
-    """A (32, c) GF(2) matrix as c column words (bit i of word c = M[i, c])."""
-    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
-    return (np.asarray(matrix, dtype=np.uint64) * weights[:, None]).sum(axis=0).astype(np.uint32)
-
-
-@functools.lru_cache(maxsize=4)
-def span_crc_tables(nbytes: int) -> np.ndarray:
-    """(2 * nbytes, 16) uint32: ``[2p + h, x]`` is the raw CRC register,
-    from zero, of nbytes bytes that are all zero but byte p = x << 4h.
-    The register of a span is the XOR of one lookup per nibble."""
-    return _nibble_tables(_column_words(crc32.subblock_matrix(nbytes)))
-
-
-@functools.lru_cache(maxsize=64)
-def shift_nibble_tables(nbytes: int) -> np.ndarray:
-    """(8, 16) uint32: ``[q, x]`` = S^nbytes applied to x << 4q."""
-    return _nibble_tables(_column_words(crc32.shift_matrix(nbytes)))

@@ -4,11 +4,10 @@ JAX package on the CPU.
 The CUDA kernel itself runs only on the card (``chip_smoke.py``). What it
 reads is built here by ``lizardfs_tpu_torch.ops.kernel_tables``, and its
 arithmetic is emulated in numpy step by step: packed GF lookups, the 4x4
-byte transpose with the kernel's ``__byte_perm`` selectors, span
-registers from nibble tables, the nibble-table CRC tree and the slab
-fold. The emulation must give the bytes and CRCs of ``pallas_ec``
-(interpret mode) and ``jax_ec``. Every value is an integer: the
-tolerance is 0 everywhere.
+byte transpose with the kernel's ``__byte_perm`` selectors, slicing-by-8
+span registers, the nibble-table CRC tree and the slab fold. The emulation
+must give the bytes and CRCs of ``pallas_ec`` (interpret mode) and
+``jax_ec``. Every value is an integer: the tolerance is 0 everywhere.
 """
 
 import numpy as np
@@ -81,21 +80,15 @@ def test_shift_nibble_tables_apply_the_shift(nbytes):
     np.testing.assert_array_equal(got, want.astype(np.uint32))
 
 
-def test_span_crc_tables_give_span_registers():
-    """The XOR of one lookup per nibble of a 16-byte span gives the JAX
-    package's sub-block map C_16 applied to the span's bits, and the
-    golden raw register of those bytes."""
+def test_crc_slicing_tables_give_span_registers():
+    """Slicing-by-8 over a 16-byte span from a zero register gives the
+    JAX package's sub-block map C_16 applied to the span's bits."""
     spans = np.random.default_rng(4).integers(0, 256, (32, VEC), dtype=np.uint8)
-    tab = kernel_tables.span_crc_tables(VEC)
-    assert tab.dtype == np.uint32 and tab.shape == (2 * VEC, 16)
     got = _span_registers(spans.reshape(1, -1))[0]
     bits = np.unpackbits(spans, axis=1, bitorder="little").astype(np.uint64)
     out = (ref_crc32.subblock_matrix(VEC).astype(np.uint64) @ bits.T) & 1
     want = (out * (np.uint64(1) << np.arange(32, dtype=np.uint64))[:, None]).sum(axis=0)
     np.testing.assert_array_equal(got, want.astype(np.uint32))
-    # raw register from zero = crc ^ crc of as many zero bytes (affine part)
-    golden = [ref_crc32.crc32(row.tobytes()) ^ ref_crc32.zeros_crc(VEC) for row in spans]
-    np.testing.assert_array_equal(got, np.array(golden, dtype=np.uint32))
 
 
 # ---------------------------------------------------------------------------
@@ -134,13 +127,15 @@ def _shift(tab, v):
 
 
 def _span_registers(rows):
-    """span_crc: (R, N) bytes -> (R, N/16) raw registers of 16-byte spans,
-    the XOR of one table lookup per nibble."""
-    tab = kernel_tables.span_crc_tables(VEC)
-    x = rows.reshape(rows.shape[0], -1, VEC)
-    crc = np.zeros(x.shape[:2], dtype=np.uint32)
-    for p in range(VEC):
-        crc ^= tab[2 * p][x[..., p] & 15] ^ tab[2 * p + 1][x[..., p] >> 4]
+    """crc_raw16 from a zero register: (R, N) bytes -> (R, N/16) registers."""
+    t = kernel_tables.crc_slicing_tables()
+    w = np.ascontiguousarray(rows).view("<u4").reshape(rows.shape[0], -1, 4)
+    crc = np.zeros(w.shape[:2], dtype=np.uint32)
+    for lo, hi in ((w[..., 0], w[..., 1]), (w[..., 2], w[..., 3])):
+        lo = lo ^ crc
+        crc = (t[7][lo & 0xFF] ^ t[6][(lo >> 8) & 0xFF] ^ t[5][(lo >> 16) & 0xFF]
+               ^ t[4][lo >> 24] ^ t[3][hi & 0xFF] ^ t[2][(hi >> 8) & 0xFF]
+               ^ t[1][(hi >> 16) & 0xFF] ^ t[0][hi >> 24])
     return crc
 
 
@@ -165,7 +160,7 @@ def _packed_apply(bigm, data):
 
 
 def _block_crcs(rows, block_size):
-    """Span registers -> per-slab nibble-table tree -> slab fold -> ^ K."""
+    """Span registers -> per-CTA nibble-table tree -> slab fold -> ^ K."""
     threads = min(THREADS, block_size // VEC)
     levels = threads.bit_length() - 1
     slab = threads * VEC
