@@ -334,10 +334,28 @@ def main() -> int:
         torch.cuda.synchronize()
         return ms
 
+    def device_ms(fn, calls=20):
+        """Device time per call, from torch.profiler: the kernels' own run
+        time whatever the host's pace. None where it records none."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as exc:  # no CUPTI: report, time without it
+            print(f"torch.profiler: {exc}", file=sys.stderr)
+            return None
+        total_us = sum(e.self_device_time_total for e in prof.key_averages())
+        return total_us / calls / 1e3 if total_us else None
+
     rows = []
     for name, (kernel, plain, nbytes, g_ops, c_ops) in work.items():
         k_ms, k_iters = time_ms(kernel)
         h_ms = host_ms(kernel, k_iters)
+        d_ms = device_ms(kernel)
         p_ms, p_iters = time_ms(plain)
         b_ms, b_by = bound(nbytes, g_ops, c_ops)
         rows.append({
@@ -348,7 +366,8 @@ def main() -> int:
             "match": err[name] == 0,
         })
         print(json.dumps({
-            "kernel": name, "kernel_ms": k_ms, "host_ms": h_ms, "plain_ms": p_ms,
+            "kernel": name, "kernel_ms": k_ms, "host_ms": h_ms, "device_ms": d_ms,
+            "plain_ms": p_ms,
             "bound_us": b_ms * 1e3, "bound_by": b_by, "launches": launches[name],
             "bytes": nbytes, "gf_int8_ops": g_ops, "crc_scalar_ops": c_ops,
             "kernel_iters": k_iters, "plain_iters": p_iters, "windows": WINDOWS,

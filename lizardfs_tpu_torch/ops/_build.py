@@ -77,10 +77,11 @@ def library() -> ctypes.CDLL:
     signatures = {
         "lz_gf_apply": [ptr, ptr, ptr, i32, i32, i64, i32, ptr],
         "lz_block_crcs": [ptr, i64, i32, i32, ptr, i32, u32, ptr, ptr],
+        "lz_fused_resident": [i32, i32, i32, i32],
         "lz_fused_encode_crc": [
-            ptr, ptr, i32, i32, i64, i32, i32, i32, ptr, ptr, i32, ptr, ptr, i32, ptr,
+            ptr, ptr, i32, i32, i64, i32, i32, i32, ptr, ptr, i32, ptr, u32, i32,
+            ptr, ptr, ptr, ptr, ptr, ptr,
         ],
-        "lz_crc_fold": [ptr, i64, i32, ptr, u32, ptr, ptr, ptr, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

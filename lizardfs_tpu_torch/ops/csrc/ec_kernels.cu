@@ -5,11 +5,13 @@
 // lizardfs_tpu_torch/ops/cuda_ec.py. Every launcher runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 //
-// Two device-side building blocks carry all four kernel functions:
+// Two device-side building blocks carry all four kernel functions; the
+// fused kernel has its own forms of both (device function 3, below):
 //
 //  * GF(2) matrix apply through split-nibble tables. An (8w, 8r) bit-plane
-//    matrix over GF(2) (lizardfs_tpu_torch/ops/bitplane.py) is turned, at
-//    block start, into one 32-byte table per (output row i, input row j):
+//    matrix over GF(2) (lizardfs_tpu_torch/ops/bitplane.py) is turned by
+//    gf_apply_kernel, at block start, into one 32-byte table per (output
+//    row i, input row j):
 //    lo[n] / hi[n] = XOR of the matrix columns selected by the low / high
 //    nibble n. An output byte is XOR_j lo[x_j & 15] ^ hi[x_j >> 4]: the
 //    same GF(2)-linear map the TPU computes as a bit-plane matmul on the
@@ -73,6 +75,9 @@
 //       shift (N[q][x] = S^n (x << 4q)) instead of 32 column steps;
 //       the registers of a row sit one word apart with one pad word per
 //       32, so the tree's strided pairs hit distinct banks.
+//    What bounds this design on the H100 is integer issue: each lookup
+//    spends about three integer instructions on its nibble's offset and
+//    its table's address (the `sass` lines of chip_smoke.py; PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -494,45 +499,60 @@ int lz_block_crcs(const void* blocks, long long nblocks, int bs, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
-int lz_fused_encode_crc(const void* gf_tabs, const void* data, int k, int m,
-                        long long n, int bs, int threads, int splits,
-                        const void* crc_tabs, const void* level_tabs, int levels,
-                        void* parity, void* regs, int crc_inputs, void* stream) {
+// CTAs of fused_encode_crc_kernel that fit on the current device at once
+// for this shape (at least 1), or minus the CUDA error. Also lets the
+// kernel take the device's opt-in shared memory. The wrapper calls it
+// once per shape and device and passes the count to every launch.
+int lz_fused_resident(int k, int m, int threads, int levels) {
   const size_t smem = fused_smem_bytes(k, m, threads, levels);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_encode_crc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  // a grid of the CTAs that fit on the card at once: each copies the
-  // tables once and walks slabs
-  int device = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  int device = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_encode_crc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, fused_encode_crc_kernel, threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long ctas = (n / bs) * splits;
-  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+// The fused pass over a grid of at most `resident` CTAs
+// (lz_fused_resident), each copying the tables once and walking slabs,
+// then the fold of the registers of the rows whose CRCs are returned: all
+// k + m rows, or with `expected` (a rebuild) the m output rows, compared
+// into `ok`. crc_out is (rows, n / bs) or (m, n / bs).
+int lz_fused_encode_crc(const void* gf_tabs, const void* data, int k, int m,
+                        long long n, int bs, int threads, int splits,
+                        const void* crc_tabs, const void* level_tabs, int levels,
+                        const void* slab_tab, unsigned int k_const, int resident,
+                        void* parity, void* regs, void* crc_out,
+                        const void* expected, void* ok, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int crc_inputs = expected == nullptr;
+  const size_t smem = fused_smem_bytes(k, m, threads, levels);
+  const long long nb = n / bs;
+  const long long ctas = nb * splits;
   const long long grid = ctas < resident ? ctas : resident;
-  fused_encode_crc_kernel<<<static_cast<unsigned>(grid), threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+  auto* r = static_cast<uint32_t*>(regs);
+  fused_encode_crc_kernel<<<static_cast<unsigned>(grid), threads, smem, s>>>(
       static_cast<const uint32_t*>(gf_tabs), static_cast<const uint8_t*>(data),
       k, m, n, bs, splits, static_cast<const uint32_t*>(crc_tabs),
       static_cast<const uint32_t*>(level_tabs), levels,
-      static_cast<uint8_t*>(parity), static_cast<uint32_t*>(regs), crc_inputs);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int lz_crc_fold(const void* regs, long long count, int splits,
-                const void* slab_tab, unsigned int k_const, void* out,
-                const void* expected, void* ok, void* stream) {
-  const int threads = 256;
-  const long long grid = grid_for(count, threads, 65536);
-  crc_fold_kernel<<<static_cast<unsigned>(grid), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(regs), count, splits,
-      static_cast<const uint32_t*>(slab_tab), k_const,
-      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(expected),
+      static_cast<uint8_t*>(parity), r, crc_inputs);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int row0 = crc_inputs ? 0 : k;
+  const long long count = (k + m - row0) * nb;
+  const int fold_threads = 256;  // >= kShiftWords
+  const long long fold_grid = grid_for(count, fold_threads, 65536);
+  crc_fold_kernel<<<static_cast<unsigned>(fold_grid), fold_threads, 0, s>>>(
+      r + row0 * nb * splits, count, splits, static_cast<const uint32_t*>(slab_tab),
+      k_const, static_cast<uint32_t*>(crc_out), static_cast<const uint32_t*>(expected),
       static_cast<uint8_t*>(ok));
   return static_cast<int>(cudaGetLastError());
 }

@@ -219,41 +219,51 @@ def _fused_checks(bigm, data, block_size) -> tuple[int, int, int]:
     return w, r, n // block_size
 
 
-def _fused_launch(bigm, data, block_size, expected=None):
-    """Launch the fused kernel and the fold. With ``expected`` (the lost
-    parts' stored CRCs) the input rows' CRCs are skipped and the fold
-    compares; returns (out rows, crcs of all rows or of the outputs, ok)."""
-    _check_aligned(data, "data")
-    w, r = bigm.shape[0] // 8, data.shape[0]
-    n = data.shape[1]
-    nb = n // block_size
-    dev = data.device
+@functools.lru_cache(maxsize=64)
+def _fused_plan(r: int, w: int, block_size: int, device: torch.device) -> tuple:
+    """What the fused kernel and its fold take for r input and w output
+    rows of block_size blocks on ``device``, worked out once: (threads,
+    splits, levels, CRC tables, level shift tables, slab shift table, K,
+    CTAs resident on the card)."""
     threads = _crc_threads(block_size)
     slab = threads * _VEC
-    splits = block_size // slab
     levels = threads.bit_length() - 1
+    with torch.cuda.device(device):
+        resident = _build.library().lz_fused_resident(r, w, threads, levels)
+    if resident < 0:
+        raise RuntimeError(f"occupancy query of the fused kernel failed: error {-resident}")
+    return (threads, block_size // slab, levels, _crc_table(device),
+            _shift_nibble_table(tuple(_VEC << l for l in range(levels)), device),
+            _shift_nibble_table((slab,), device), crc32.zeros_crc(block_size), resident)
+
+
+def _fused_launch(bigm, data, block_size, expected=None):
+    """Launch the fused kernel and the fold, with one library call. With
+    ``expected`` (the lost parts' stored CRCs) the input rows' CRCs are
+    skipped and the fold compares; returns (out rows, crcs of all rows or
+    of the outputs, ok)."""
+    _check_aligned(data, "data")
+    w, (r, n) = bigm.shape[0] // 8, data.shape
+    nb = n // block_size
+    dev = data.device
+    threads, splits, levels, crc_tab, level_tabs, slab_tab, k_const, resident = (
+        _fused_plan(r, w, block_size, dev))
     gf_tabs = _gf_tables_for(bigm)
-    level_tabs = _shift_nibble_table(tuple(_VEC << l for l in range(levels)), dev)
-    slab_tab = _shift_nibble_table((slab,), dev)
     crc_inputs = expected is None
     rows = r + w
+    folded = rows if crc_inputs else w
     out = torch.empty((w, n), dtype=torch.uint8, device=dev)
     regs = torch.empty((rows, nb, splits), dtype=torch.int32, device=dev)
-    folded = rows if crc_inputs else w
     crcs = torch.empty((folded, nb), dtype=torch.int32, device=dev)
     ok = None if crc_inputs else torch.empty((w, nb), dtype=torch.bool, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        stream = _stream(data)
         _launch("fused_encode_crc", lib.lz_fused_encode_crc, gf_tabs.data_ptr(),
                 data.data_ptr(), r, w, n, block_size, threads, splits,
-                _crc_table(dev).data_ptr(), level_tabs.data_ptr(), levels,
-                out.data_ptr(), regs.data_ptr(), int(crc_inputs), stream)
-        _launch("crc_fold", lib.lz_crc_fold, regs[rows - folded:].data_ptr(),
-                folded * nb, splits, slab_tab.data_ptr(),
-                crc32.zeros_crc(block_size), crcs.data_ptr(),
+                crc_tab.data_ptr(), level_tabs.data_ptr(), levels, slab_tab.data_ptr(),
+                k_const, resident, out.data_ptr(), regs.data_ptr(), crcs.data_ptr(),
                 None if crc_inputs else expected.data_ptr(),
-                None if crc_inputs else ok.data_ptr(), stream)
+                None if crc_inputs else ok.data_ptr(), _stream(data))
     return out, crcs, ok
 
 

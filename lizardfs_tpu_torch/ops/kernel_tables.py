@@ -30,7 +30,6 @@ from lizardfs_tpu_torch.ops import crc32
 ROWS_PER_GROUP = 4  # output rows packed into one 32-bit table word
 WORDS_PER_ROW = 32  # 16 lo + 16 hi words per (group, input row)
 NIBBLES = 8  # nibbles of a 32-bit CRC register
-SHIFT_WORDS = NIBBLES * 16  # words of one shift table
 
 
 def nibble_products(bigm: np.ndarray) -> np.ndarray:
