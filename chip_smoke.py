@@ -52,6 +52,17 @@ CRC_OPS_PER_BYTE = 3  # slicing-by-8: a byte extract, a table load and an XOR pe
 WINDOW_MS = 50.0  # each timing window lasts at least this long
 WINDOWS = 5  # timings report the median window
 SOURCE = "lizardfs_tpu_torch/ops/csrc/ec_kernels.cu"
+SASS = {  # kernel: pattern of its (mangled) name in cuobjdump's listing
+    "fused_encode_crc_kernel": "fused_encode_crc_kernel",
+    "crc_fold_kernel": "crc_fold_kernel",
+    "gf_apply_kernel<true>": "gf_apply_kernelILb1E",
+    "gf_apply_kernel<false>": "gf_apply_kernelILb0E",
+    "block_crc_kernel<4>": "block_crc_kernelILi4E",
+    "block_crc_kernel<8>": "block_crc_kernelILi8E",
+    "block_crc_kernel<12>": "block_crc_kernelILi12E",
+    "block_crc_lane_kernel<4>": "block_crc_lane_kernelILi4E",
+    "block_crc_lane_kernel<8>": "block_crc_lane_kernelILi8E",
+}
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
     "block_crcs": "lizardfs_tpu/ops/pallas_ec.py:166",
@@ -122,8 +133,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.3f} s ({_build.library_path().name})")
-    for kernel in ("fused_encode_crc_kernel", "crc_fold_kernel"):
-        print(json.dumps({"sass": kernel, **(sass_mix(str(_build.library_path()), kernel) or {})}))
+    for kernel, pattern in SASS.items():
+        print(json.dumps({"sass": kernel, **(sass_mix(str(_build.library_path()), pattern) or {})}))
 
     # -- phase 2: each kernel against its plain version and the golden ----
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -192,6 +203,19 @@ def main() -> int:
         require(flipped == [[len(lost) - 1, 7]], f"decode {lost}: one corrupt CRC flips one ok bit")
         decode_cases[len(lost)] = (rec_m, surv, expected)
 
+    # the GF apply's other paths at the main path's widths: a one-part
+    # rebuild (an output group of one row) and rows that start off a
+    # 16-byte boundary (the byte path)
+    rec_m, surv, _ = decode_cases[1]
+    one = cuda_ec.encode(rec_m, surv)
+    same("encode", one, torch_ec.apply_gf_bitmatrix(rec_m, surv), "one-row recovery, 8 MiB parts")
+    same("encode", one, allparts[[3]], "golden bytes of part 3")
+    flat = rand_bytes(K * PART + 1)
+    unaligned = flat[1:].view(K, PART)
+    require(unaligned.data_ptr() % 16 != 0, "an unaligned view")
+    same("encode", cuda_ec.encode(bigm, unaligned), torch_ec.apply_gf_bitmatrix(bigm, unaligned),
+         "rows off a 16-byte boundary (byte path), 8 MiB parts")
+
     # other geometries, small: the paths ec(8,4) does not take (output
     # row groups past four, one-row matrices, ragged lengths, small
     # blocks, more than 48 KiB of shared memory at ec(32,32))
@@ -199,9 +223,16 @@ def main() -> int:
         g = torch.from_numpy(torch_ec.encoding_bitmatrix(k, m)).to(dev)
         x = rand_bytes(k, n)
         same("encode", cuda_ec.encode(g, x), torch_ec.apply_gf_bitmatrix(g, x), f"ec({k},{m}) N={n}")
-    for bs, count in ((64, 7), (4096, 33), (8192, 5)):
+    # block CRCs: small blocks (4 threads a CTA), slab counts that are no
+    # multiple of the slabs a step (7, 33, 10), one block, and more steps
+    # than the resident grid takes at once
+    crc_grid = cuda_ec._resident(cuda_ec._BLOCK_CRC, cuda_ec._CRC_THREADS, cuda_ec._CRC_ROWS,
+                                 0, 8, dev) * cuda_ec._CRC_ROWS
+    require(20011 > crc_grid, f"20011 slabs exceed the {crc_grid} the grid takes a step")
+    for bs, count in ((64, 7), (4096, 33), (8192, 5), (BS, 1), (4096, 20011)):
         b = rand_bytes(count, bs)
-        same("block_crcs", cuda_ec.block_crcs(b, bs), torch_ec.block_crcs(b, bs), f"bs={bs}", crc=True)
+        same("block_crcs", cuda_ec.block_crcs(b, bs), torch_ec.block_crcs(b, bs),
+             f"bs={bs} x {count}", crc=True)
     # the fused kernel's packed tables: ec(5,7) ends on a group of three
     # parity rows, ec(2,1) and every one-part rebuild on a group of one,
     # ec(32,32) carries the largest tables (8 groups of 32 input rows)
@@ -373,6 +404,25 @@ def main() -> int:
             "kernel_iters": k_iters, "plain_iters": p_iters, "windows": WINDOWS,
             "card": card,
         }))
+    # block CRC designs, in turns: shared slicing-by-8 tables at 4, 8 or
+    # 12 slabs a step, lane-private slicing-by-4 tables at 4 or 8 loads a
+    # step
+    shipped = cuda_ec._CRC_ROWS, cuda_ec._CRC_LANE_STEPS
+    variants = ((8, 0), (4, 0), (12, 0), (8, 4), (8, 8))
+    for rows_per_step, lane_steps in variants + variants[::-1]:
+        cuda_ec._CRC_ROWS, cuda_ec._CRC_LANE_STEPS = rows_per_step, lane_steps
+        what = f"block CRC, {rows_per_step} slabs or {lane_steps} lane loads a step"
+        require(torch.equal(cuda_ec.block_crcs(blocks, BS), crcs), what)
+        for bs, count in ((64, 7), (4096, 33), (8192, 5), (BS, 1)):
+            b = rand_bytes(count, bs)
+            same("block_crcs", cuda_ec.block_crcs(b, bs), torch_ec.block_crcs(b, bs),
+                 f"{what}: bs={bs} x {count}", crc=True)
+        r_ms, _ = time_ms(lambda: cuda_ec.block_crcs(blocks, BS))
+        print(json.dumps({"crc_rows": rows_per_step, "crc_lane_steps": lane_steps,
+                          "kernel_ms": r_ms,
+                          "device_ms": device_ms(lambda: cuda_ec.block_crcs(blocks, BS)),
+                          "card": card}))
+    cuda_ec._CRC_ROWS, cuda_ec._CRC_LANE_STEPS = shipped
     # the encoder seam end to end: numpy in, pinned staging, kernels,
     # numpy out (host clock around work that ends synchronised)
     def wall_ms(fn, reps=5):

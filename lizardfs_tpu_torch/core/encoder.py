@@ -23,6 +23,8 @@ import torch
 from lizardfs_tpu_torch.constants import MFSBLOCKSIZE
 from lizardfs_tpu_torch.ops import crc32, cuda_ec, gf256, rs, torch_ec
 
+_MATRIX_CACHE = 256  # device matrices an encoder keeps (oldest dropped first)
+
 
 class ChunkEncoder(abc.ABC):
     """EC compute backend interface."""
@@ -127,6 +129,10 @@ class CudaChunkEncoder(ChunkEncoder):
     def __init__(self, device=None):
         self.device = cuda_ec.resolve_device(device)
         self._pinned = self.device.type == "cuda"
+        # device copies of the bit-plane matrices, by shape and bytes: the
+        # kernels' table cache is kept per matrix tensor, so a matrix
+        # uploaded once is read back once
+        self._matrices: dict[tuple, torch.Tensor] = {}
 
     def _stage(self, rows) -> torch.Tensor:
         """Equal-length 1-D byte arrays -> one (len(rows), N) uint8 tensor
@@ -151,7 +157,14 @@ class CudaChunkEncoder(ChunkEncoder):
         return self._fetch(t).view(np.uint32)
 
     def _matrix(self, bigm: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(bigm)).to(self.device)
+        bigm = np.ascontiguousarray(bigm)
+        key = (bigm.shape, bigm.tobytes())
+        t = self._matrices.get(key)
+        if t is None:
+            if len(self._matrices) >= _MATRIX_CACHE:
+                self._matrices.pop(next(iter(self._matrices)))
+            t = self._matrices[key] = torch.from_numpy(bigm).to(self.device)
+        return t
 
     def _encode(self, k, m, data_parts) -> torch.Tensor:
         if len(data_parts) != k:

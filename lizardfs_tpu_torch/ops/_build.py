@@ -75,9 +75,10 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
     signatures = {
-        "lz_gf_apply": [ptr, ptr, ptr, i32, i32, i64, i32, ptr],
-        "lz_block_crcs": [ptr, i64, i32, i32, ptr, i32, u32, ptr, ptr],
-        "lz_fused_resident": [i32, i32, i32, i32],
+        "lz_resident": [i32, i32, i32, i32, i32],
+        "lz_gf_apply": [ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr],
+        "lz_block_crcs": [ptr, i64, i32, i32, i32, ptr, ptr, i32, ptr, u32, i32, ptr, ptr, ptr],
+        "lz_block_crcs_lane": [ptr, i64, i32, i32, i32, ptr, ptr, i32, ptr, u32, i32, ptr, ptr, ptr],
         "lz_fused_encode_crc": [
             ptr, ptr, i32, i32, i64, i32, i32, i32, ptr, ptr, i32, ptr, u32, i32,
             ptr, ptr, ptr, ptr, ptr, ptr,

@@ -5,44 +5,61 @@
 // lizardfs_tpu_torch/ops/cuda_ec.py. Every launcher runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 //
-// Two device-side building blocks carry all four kernel functions; the
-// fused kernel has its own forms of both (device function 3, below):
+// Every kernel reads only tables built on the host with numpy
+// (lizardfs_tpu_torch/ops/kernel_tables.py, cached per matrix and device
+// by the wrappers). A grid of the CTAs that fit on the card at once
+// (lz_resident, asked once per shape by the wrapper) copies them into
+// shared memory with 16-byte loads and one barrier, then walks the work
+// with its grid stride. Two building blocks carry all four TPU functions:
 //
-//  * GF(2) matrix apply through split-nibble tables. An (8w, 8r) bit-plane
-//    matrix over GF(2) (lizardfs_tpu_torch/ops/bitplane.py) is turned by
-//    gf_apply_kernel, at block start, into one 32-byte table per (output
-//    row i, input row j):
-//    lo[n] / hi[n] = XOR of the matrix columns selected by the low / high
-//    nibble n. An output byte is XOR_j lo[x_j & 15] ^ hi[x_j >> 4]: the
-//    same GF(2)-linear map the TPU computes as a bit-plane matmul on the
-//    MXU, and the scheme of the repo's C++ SIMD backend. All lanes of a
-//    warp read the same 32-byte table (8 words in 8 distinct banks), so the
-//    lookups are free of bank conflicts.
+//  * GF(2^8) matrix apply through packed nibble tables. For each group q
+//    of four output rows and each input row j, 16 lo and 16 hi words sit
+//    in one aligned run of 32; byte g of lo[n] (hi[n]) is the product of
+//    output row 4q+g's coefficient for row j with n (n << 4). One pair of
+//    32-bit lookups per input byte (xor_packed) thus serves four output
+//    rows: the same GF(2)-linear map the TPU computes as a bit-plane
+//    matmul on the MXU. A row's 32 words fill 16 banks per lookup, free
+//    of conflicts. 16 packed accumulators a thread (one per byte of its
+//    16-byte column unit) are turned into the four rows' bytes with eight
+//    __byte_perm (transpose4) only at the end.
 //
-//  * CRC32 of contiguous spans combined by GF(2) shift matrices. Each
-//    thread computes the raw register (init 0, no final XOR) of its span
-//    with a slicing-by-8 table in shared memory; registers of adjacent
-//    spans combine as R(A||B) = S^|B| R(A) ^ R(B), where S^n (shift by n
-//    zero bytes, lizardfs_tpu_torch/ops/crc32.py:shift_matrix) is passed as
-//    32 uint32 column words. A log tree in shared memory folds a block's
-//    spans; crc = R ^ K with K = crc32 of block_size zero bytes. This is
-//    the affine decomposition of ops/crc32.py.
+//  * CRC32 of 16-byte spans combined by table-driven shifts. Each thread
+//    takes the raw register (init 0, no final XOR) of its span with
+//    slicing-by-8 tables (crc_raw16); registers of adjacent spans combine
+//    as R(A||B) = S^|B| R(A) ^ R(B), where a shift S^n (n zero bytes,
+//    lizardfs_tpu_torch/ops/crc32.py:shift_matrix) is 8 nibble tables,
+//    N[q][x] = S^n (x << 4q), so a combine is the XOR of 8 lookups
+//    (shift_nibbles). crc_tree_nibbles folds the span registers of a slab
+//    (16 * blockDim.x bytes) in shared memory, one pad word per 32 so
+//    that its strided pairs hit distinct banks; crc_fold_kernel folds the
+//    slab registers of each block by Horner's rule with S^slab and XORs
+//    K = crc32 of block_size zero bytes. This is the affine decomposition
+//    of ops/crc32.py.
 //
 // Kernels and the TPU kernels they replace (lizardfs_tpu/ops/pallas_ec.py):
 //
 //  gf_apply_kernel          replaces `encode` (:91-118, pallas_call :108).
-//    Bound on the H100 by bytes: r input rows read once, w output rows
-//    written once; the bit-plane formulation's int8 work (2*64*w*r ops
-//    per column) is below the memory time at EC shapes. Design: threads
-//    take consecutive 16-byte column vectors (coalesced 512-byte warp
-//    accesses per row); any N is taken (a byte-wise instantiation covers
-//    lengths that are not a multiple of 16). Output rows are produced in
-//    register groups of four; inputs are re-read per group from L1/L2.
+//    Bound by bytes on the H100: r input rows read once, w output rows
+//    written once (the bit-plane formulation's int8 work is below the
+//    memory time at EC shapes). Design: each thread step takes one
+//    16-byte column unit of all r input rows (coalesced 512-byte warp
+//    loads), one packed lookup pair per input byte for each group of
+//    four output rows; groups short of four rows (w = 1 in a one-part
+//    rebuild) read zero bytes in the unused lanes and skip their stores.
+//    Inputs are re-read per group (from L1/L2) when w > 4. A byte-wise
+//    instantiation covers lengths that are no multiple of 16 and
+//    unaligned rows.
 //
 //  block_crc_kernel         replaces `block_crcs` (:146-190, pallas_call
-//    :166 plus the XLA log-tree fold). Bound by bytes: each block is read
-//    once. Design: one CTA per block, one contiguous span per thread, the
-//    tree fold in shared memory, no HBM round trip of partial registers.
+//  + crc_fold_kernel         :166 plus the XLA log-tree fold). Bound by
+//    bytes: each block is read once. Design: the fused kernel's CRC half,
+//    over blocks instead of rows. A block is `splits` slabs of 16 bytes a
+//    thread; lane t takes bytes [16t, 16t + 16) of a slab (coalesced
+//    512-byte warp loads); a CTA loads kRows slabs at a time, so that one
+//    tree folds kRows rows per barrier, and writes one raw register per
+//    slab; crc_fold_kernel folds them per block. What bounds it is the
+//    slicing-by-8 lookups: their indices are random bytes, so a warp's 32
+//    lookups into a 256-word table hit about 3.5-way bank conflicts.
 //
 //  fused_encode_crc_kernel  replaces `fused_encode_crc` (:438-581,
 //  + crc_fold_kernel         pallas_call :527, finalize :567-579) and,
@@ -53,31 +70,14 @@
 //    slabs of 16 bytes a thread (a 64 MiB ec(8,4) chunk has only 128
 //    blocks, fewer than the 132 SMs); a CTA reads its slab of all k data
 //    rows once, writes the slab's parity once, and folds the raw CRC
-//    registers of all k+m rows of its slab in shared memory.
-//    crc_fold_kernel then folds the slab registers of each (row, block)
-//    by Horner's rule with S^slab (the Pallas `comb` matrix), XORs K,
-//    and optionally compares with the stored CRCs.
-//    What held the first design back was shared-memory issue work, not
-//    bytes: two byte loads per input byte per output row from
-//    per-(row, row) tables, a 32-step GF(2) column walk per CRC combine,
-//    and tables rebuilt by every CTA from the bit-plane matrix. This
-//    design reads only tables built on the host
-//    (lizardfs_tpu_torch/ops/kernel_tables.py), copied into shared
-//    memory with 16-byte loads and one barrier by each of a grid sized
-//    to the resident CTAs, which then walk the slabs:
-//     - one pair of 32-bit lookups per input byte serves four parity
-//       rows: table word byte g is output row 4q+g's product, the 16
-//       lo and 16 hi words of a row sit in one aligned run of 32 (16
-//       banks per lookup, no conflicts); 16 packed accumulators per
-//       thread are transposed into the four rows' bytes with __byte_perm
-//       only at the end;
-//     - a CRC combine is the XOR of 8 lookups in nibble tables of the
-//       shift (N[q][x] = S^n (x << 4q)) instead of 32 column steps;
-//       the registers of a row sit one word apart with one pad word per
-//       32, so the tree's strided pairs hit distinct banks.
-//    What bounds this design on the H100 is integer issue: each lookup
-//    spends about three integer instructions on its nibble's offset and
-//    its table's address (the `sass` lines of chip_smoke.py; PERF.md).
+//    registers of all k+m rows of its slab in shared memory;
+//    crc_fold_kernel then folds the slab registers of each (row, block),
+//    XORs K, and optionally compares with the stored CRCs.
+//
+// What bounds these designs on the H100 is integer issue, not bytes:
+// each lookup spends about three integer instructions on its nibble's or
+// byte's offset and its table's address (the `sass` lines of
+// chip_smoke.py; PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -85,85 +85,15 @@
 
 namespace {
 
-constexpr uint32_t kCrcPoly = 0xEDB88320u;
-constexpr int kMaxLevels = 8;  // log2 of the largest CTA (256 threads)
 constexpr int kCrcTableWords = 8 * 256;  // slicing-by-8 tables
 constexpr int kShiftWords = 8 * 16;      // one shift as 8 nibble tables
 constexpr int kGfRowWords = 32;          // 16 lo + 16 hi packed words
+constexpr int kLaneTableWords = 4 * 256 * 32;  // slicing-by-4, a copy a lane
 
 // ---------------------------------------------------------------------------
-// Device function 1: GF(2) matrix apply through split-nibble tables.
+// Device functions: host-built tables, packed GF lookups, raw CRC
+// registers and table-driven CRC shifts.
 // ---------------------------------------------------------------------------
-
-// tab[((i * r + j) * 32) + n] for n < 16: XOR of the column bytes of input
-// bits 0..3 of part j selected by n; tab[... + 16 + n]: the same for bits
-// 4..7. A column byte packs the 8 rows of output byte i of one matrix
-// column. Called by every thread of the block; the caller synchronises.
-__device__ void build_nibble_tables(const int8_t* __restrict__ bigm, int w,
-                                    int r, uint8_t* tab) {
-  const int total = w * r * 32;
-  const int cols = 8 * r;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int n = e & 15;
-    const int half = (e >> 4) & 1;
-    const int ij = e >> 5;
-    const int i = ij / r;
-    const int j = ij - i * r;
-    uint32_t v = 0;
-    for (int b = 0; b < 4; ++b) {
-      if (!((n >> b) & 1)) continue;
-      const int c = 8 * j + 4 * half + b;
-      uint32_t colbyte = 0;
-      for (int rr = 0; rr < 8; ++rr)
-        colbyte |= static_cast<uint32_t>(bigm[(8 * i + rr) * cols + c] & 1) << rr;
-      v ^= colbyte;
-    }
-    tab[e] = static_cast<uint8_t>(v);
-  }
-}
-
-__device__ __forceinline__ uint32_t gf_byte(const uint8_t* t, uint32_t b) {
-  return t[b & 15u] ^ t[16u + (b >> 4)];
-}
-
-__device__ __forceinline__ uint32_t gf_word(const uint8_t* t, uint32_t x) {
-  uint32_t out = 0;
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-    out |= gf_byte(t, (x >> (8 * p)) & 0xffu) << (8 * p);
-  return out;
-}
-
-__device__ __forceinline__ void xor_gf_vec(uint4& acc, const uint8_t* t,
-                                           const uint4 x) {
-  acc.x ^= gf_word(t, x.x);
-  acc.y ^= gf_word(t, x.y);
-  acc.z ^= gf_word(t, x.z);
-  acc.w ^= gf_word(t, x.w);
-}
-
-// ---------------------------------------------------------------------------
-// Device function 2: raw CRC32 registers and their GF(2) shift combine.
-// ---------------------------------------------------------------------------
-
-// Slicing-by-8 tables: t[0] is the reflected byte table, t[s][i] =
-// (t[s-1][i] >> 8) ^ t[0][t[s-1][i] & 0xff]. Called by every thread; ends
-// synchronised.
-__device__ void build_crc_tables(uint32_t (*t)[256]) {
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    uint32_t c = static_cast<uint32_t>(i);
-    for (int b = 0; b < 8; ++b) c = (c & 1u) ? (kCrcPoly ^ (c >> 1)) : (c >> 1);
-    t[0][i] = c;
-  }
-  __syncthreads();
-  for (int s = 1; s < 8; ++s) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-      const uint32_t c = t[s - 1][i];
-      t[s][i] = (c >> 8) ^ t[0][c & 0xffu];
-    }
-    __syncthreads();
-  }
-}
 
 // Raw register update over 8 bytes: lo holds bytes 0..3, hi bytes 4..7
 // (little-endian loads).
@@ -181,36 +111,21 @@ __device__ __forceinline__ uint32_t crc_raw16(const uint32_t (*t)[256],
   return crc_raw8(t, crc_raw8(t, crc, v.x, v.y), v.z, v.w);
 }
 
-// v -> M v over GF(2), M given by its 32 column words.
-__device__ __forceinline__ uint32_t gf2_apply(const uint32_t* cols, uint32_t v) {
-  uint32_t out = 0;
-#pragma unroll
-  for (int c = 0; c < 32; ++c) out ^= cols[c] & (0u - ((v >> c) & 1u));
-  return out;
+// Raw register update over the 4 bytes of x (little-endian) with
+// slicing-by-4 tables that each lane keeps a copy of: t[(s * 256 + i) *
+// 32] is table s, entry i, of the calling lane's copy (t = base + lane),
+// so the 32 lanes of a warp always read 32 distinct banks.
+__device__ __forceinline__ uint32_t crc_lane4(const uint32_t* t, uint32_t crc,
+                                              uint32_t x) {
+  x ^= crc;
+  return t[(768 + (x & 0xffu)) * 32] ^ t[(512 + ((x >> 8) & 0xffu)) * 32] ^
+         t[(256 + ((x >> 16) & 0xffu)) * 32] ^ t[(x >> 24) * 32];
 }
 
-// regs holds `rows` rows of T raw registers, one per consecutive span of
-// equal length; level_cols[l] shifts by the length of 2^l spans. On return
-// regs[row * T] is the register of the whole row. Entry and exit are
-// synchronised.
-__device__ void crc_tree(uint32_t* regs, int rows, int T,
-                         const uint32_t* level_cols, int levels) {
-  for (int l = 0; l < levels; ++l) {
-    const int h = 1 << l;
-    const int pairs = T >> (l + 1);
-    for (int e = threadIdx.x; e < rows * pairs; e += blockDim.x) {
-      const int row = e / pairs;
-      uint32_t* left = regs + row * T + (e - row * pairs) * 2 * h;
-      left[0] = gf2_apply(level_cols + 32 * l, left[0]) ^ left[h];
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ uint32_t crc_lane16(const uint32_t* t, uint32_t crc,
+                                               const uint4 v) {
+  return crc_lane4(t, crc_lane4(t, crc_lane4(t, crc_lane4(t, crc, v.x), v.y), v.z), v.w);
 }
-
-// ---------------------------------------------------------------------------
-// Device function 3 (fused kernel): host-built tables, packed GF lookups
-// and table-driven CRC shifts.
-// ---------------------------------------------------------------------------
 
 // dst[0:words] = src[0:words] with 16-byte loads; words % 4 == 0 and both
 // pointers 16-byte aligned. The caller synchronises.
@@ -261,11 +176,10 @@ __device__ __forceinline__ uint32_t shift_nibbles(const uint32_t* t, uint32_t v)
 // the tree's pairs at strides of 2..32 words fall in distinct banks.
 __host__ __device__ inline int span_slot(int t) { return t + (t >> 5); }
 
-// crc_tree with the shifts as nibble tables (level_tabs + kShiftWords * l
-// shifts by the length of 2^l spans) and rows `stride` words apart in the
-// span_slot layout; T = 2^levels spans a row. On return regs[row *
-// stride] is the register of the whole row. Entry and exit are
-// synchronised.
+// A log tree over `rows` rows of T = 2^levels span registers, `stride`
+// words apart in the span_slot layout; level_tabs + kShiftWords * l
+// shifts by the length of 2^l spans. On return regs[row * stride] is the
+// register of the whole row. Entry and exit are synchronised.
 __device__ void crc_tree_nibbles(uint32_t* regs, int rows, int stride,
                                  int levels, const uint32_t* level_tabs) {
   for (int l = 0; l < levels; ++l) {
@@ -286,76 +200,140 @@ __device__ void crc_tree_nibbles(uint32_t* regs, int rows, int stride,
 // Kernels.
 // ---------------------------------------------------------------------------
 
-// out (w, n) = bigm (8w, 8r) applied to data (r, n). kVec16: n % 16 == 0
-// and 16-byte aligned rows; otherwise one byte per thread step.
+// out (w, n) = the GF(2^8) matrix of gf_tabs applied to data (r, n);
+// gf_tabs (ceil(w/4), r, 32) are the packed tables of kernel_tables.py.
+// kVec16: n % 16 == 0 and 16-byte aligned rows, one 16-byte column unit a
+// thread step; otherwise one byte a step, whose output byte g of a group
+// is byte g of the accumulated word.
 template <bool kVec16>
-__global__ void gf_apply_kernel(const int8_t* __restrict__ bigm,
-                                const uint8_t* __restrict__ data,
-                                uint8_t* __restrict__ out, int w, int r,
-                                long long n) {
-  extern __shared__ uint8_t nib[];
-  build_nibble_tables(bigm, w, r, nib);
+__global__ void __launch_bounds__(256) gf_apply_kernel(
+    const uint32_t* __restrict__ gf_tabs, const uint8_t* __restrict__ data,
+    uint8_t* __restrict__ out, int w, int r, long long n) {
+  extern __shared__ uint4 smem[];
+  uint32_t* const gf = reinterpret_cast<uint32_t*>(smem);
+  const int groups = (w + 3) / 4;
+  copy_table(gf, gf_tabs, groups * r * kGfRowWords);
   __syncthreads();
   const long long units = kVec16 ? n / 16 : n;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long u = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        u < units; u += stride) {
-    for (int i0 = 0; i0 < w; i0 += 4) {
+    for (int q = 0; q < groups; ++q) {
+      const uint32_t* const t = gf + q * r * kGfRowWords;
       if constexpr (kVec16) {
-        uint4 acc[4];
+        uint32_t acc[16];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) acc[g] = make_uint4(0, 0, 0, 0);
-        for (int j = 0; j < r; ++j) {
-          const uint4 x = *reinterpret_cast<const uint4*>(data + j * n + u * 16);
+        for (int b = 0; b < 16; ++b) acc[b] = 0;
+        for (int j = 0; j < r; ++j)
+          xor_packed(acc, t + j * kGfRowWords,
+                     *reinterpret_cast<const uint4*>(data + j * n + u * 16));
+        uint32_t o[4][4];  // [word of the 16 bytes][output row of the group]
 #pragma unroll
-          for (int g = 0; g < 4; ++g)
-            if (i0 + g < w) xor_gf_vec(acc[g], nib + ((i0 + g) * r + j) * 32, x);
-        }
+        for (int v = 0; v < 4; ++v) transpose4(acc + 4 * v, o[v]);
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          if (i0 + g < w)
-            *reinterpret_cast<uint4*>(out + (i0 + g) * n + u * 16) = acc[g];
+          if (4 * q + g < w)
+            *reinterpret_cast<uint4*>(out + (4 * q + g) * n + u * 16) =
+                make_uint4(o[0][g], o[1][g], o[2][g], o[3][g]);
       } else {
-        uint32_t acc[4] = {0, 0, 0, 0};
+        uint32_t acc = 0;
         for (int j = 0; j < r; ++j) {
           const uint32_t b = data[j * n + u];
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            if (i0 + g < w) acc[g] ^= gf_byte(nib + ((i0 + g) * r + j) * 32, b);
+          acc ^= t[j * kGfRowWords + (b & 15u)] ^ t[j * kGfRowWords + 16u + (b >> 4)];
         }
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          if (i0 + g < w) out[(i0 + g) * n + u] = static_cast<uint8_t>(acc[g]);
+          if (4 * q + g < w) out[(4 * q + g) * n + u] = static_cast<uint8_t>(acc >> (8 * g));
       }
     }
   }
 }
 
-// out[b] = crc32 of blocks[b, 0:bs]. blockDim.x = T threads, each over a
-// contiguous span of bs / T bytes (a multiple of 16); level_cols (levels,
-// 32) shifts by span * 2^l bytes.
-__global__ void block_crc_kernel(const uint8_t* __restrict__ blocks,
-                                 long long nblocks, int bs,
-                                 const uint32_t* __restrict__ level_cols,
-                                 int levels, uint32_t k_const,
-                                 uint32_t* __restrict__ out) {
-  __shared__ uint32_t tabs[8][256];
-  __shared__ uint32_t cols[kMaxLevels * 32];
-  __shared__ uint32_t regs[256];
-  for (int e = threadIdx.x; e < levels * 32; e += blockDim.x) cols[e] = level_cols[e];
-  build_crc_tables(tabs);
-  const int T = blockDim.x;
-  const int vecs = bs / T / 16;
-  for (long long blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
-    const uint4* p = reinterpret_cast<const uint4*>(
-        blocks + blk * bs + static_cast<long long>(threadIdx.x) * (bs / T));
-    uint32_t crc = 0;
-    for (int o = 0; o < vecs; ++o) crc = crc_raw16(tabs, crc, p[o]);
-    regs[threadIdx.x] = crc;
+// Raw CRC registers of the slabs of 16 * blockDim.x bytes that tile the
+// blocks: regs_out[c] is the register of bytes [c * slab, (c + 1) * slab).
+// crc_tabs (8, 256) and level_tabs (levels, 8, 16) are the host-built
+// tables of kernel_tables.py; level l shifts by 16 * 2^l bytes. A CTA
+// takes kRows consecutive slabs a step (fewer at the end) and folds them
+// in one tree; two register buffers alternate between steps, so a step
+// needs no barrier after its registers are read out.
+template <int kRows>
+__global__ void __launch_bounds__(256) block_crc_kernel(
+    const uint8_t* __restrict__ blocks, long long slabs,
+    const uint32_t* __restrict__ crc_tabs,
+    const uint32_t* __restrict__ level_tabs, int levels,
+    uint32_t* __restrict__ regs_out) {
+  extern __shared__ uint4 smem[];
+  uint32_t* const sm = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* const lvl = sm + kCrcTableWords;
+  uint32_t* const regs = lvl + levels * kShiftWords;
+  copy_table(sm, crc_tabs, kCrcTableWords);
+  copy_table(lvl, level_tabs, levels * kShiftWords);
+  __syncthreads();
+  const uint32_t(*tabs)[256] = reinterpret_cast<const uint32_t(*)[256]>(sm);
+  const int stride = span_slot(blockDim.x);
+  const int slot = span_slot(threadIdx.x);
+  const long long slab = 16LL * blockDim.x;
+  uint32_t* buf = regs;
+  for (long long c0 = blockIdx.x * static_cast<long long>(kRows); c0 < slabs;
+       c0 += static_cast<long long>(gridDim.x) * kRows) {
+    const int rows = slabs - c0 < kRows ? static_cast<int>(slabs - c0) : kRows;
+    const uint8_t* const p = blocks + c0 * slab + threadIdx.x * 16;
+    uint4 x[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      if (i < rows) x[i] = *reinterpret_cast<const uint4*>(p + i * slab);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      if (i < rows) buf[i * stride + slot] = crc_raw16(tabs, 0u, x[i]);
     __syncthreads();
-    crc_tree(regs, 1, T, cols, levels);
-    if (threadIdx.x == 0) out[blk] = regs[0] ^ k_const;
+    crc_tree_nibbles(buf, rows, stride, levels, lvl);
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) regs_out[c0 + i] = buf[i * stride];
+    buf = buf == regs ? regs + kRows * stride : regs;
+  }
+}
+
+// block_crc_kernel with the CRC tables in lane-private copies. A CTA of
+// blockDim.x threads loads blockDim.x * 16 contiguous bytes at a time:
+// G = blockDim.x / T slabs of T = 2^levels spans; thread t takes span t %
+// T of slab t / T. kSteps loads a step, so one tree folds kSteps * G
+// rows. The first 4 of crc_tabs' 8 tables are copied 32 times over, word
+// (s * 256 + i) * 32 + lane.
+template <int kSteps>
+__global__ void __launch_bounds__(1024) block_crc_lane_kernel(
+    const uint8_t* __restrict__ blocks, long long slabs, int levels,
+    const uint32_t* __restrict__ crc_tabs,
+    const uint32_t* __restrict__ level_tabs,
+    uint32_t* __restrict__ regs_out) {
+  extern __shared__ uint4 smem[];
+  uint32_t* const lanes = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* const lvl = lanes + kLaneTableWords;
+  uint32_t* const regs = lvl + levels * kShiftWords;
+  for (int e = threadIdx.x; e < kLaneTableWords; e += blockDim.x) lanes[e] = crc_tabs[e >> 5];
+  copy_table(lvl, level_tabs, levels * kShiftWords);
+  __syncthreads();
+  const uint32_t* const tab = lanes + (threadIdx.x & 31);
+  const int T = 1 << levels;
+  const int G = blockDim.x >> levels;
+  const int stride = span_slot(T);
+  const int row = threadIdx.x >> levels;
+  const int slot = span_slot(threadIdx.x & (T - 1));
+  const long long per = static_cast<long long>(kSteps) * G;
+  const long long load = 16LL * blockDim.x;
+  uint32_t* buf = regs;
+  for (long long c0 = blockIdx.x * per; c0 < slabs; c0 += gridDim.x * per) {
+    const int rows = slabs - c0 < per ? static_cast<int>(slabs - c0) : static_cast<int>(per);
+    const uint8_t* const p = blocks + c0 * 16LL * T + threadIdx.x * 16;
+    uint4 x[kSteps];
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i)
+      if (i * G + row < rows) x[i] = *reinterpret_cast<const uint4*>(p + i * load);
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i)
+      if (i * G + row < rows) buf[(i * G + row) * stride + slot] = crc_lane16(tab, 0u, x[i]);
     __syncthreads();
+    crc_tree_nibbles(buf, rows, stride, levels, lvl);
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) regs_out[c0 + i] = buf[i * stride];
+    buf = buf == regs ? regs + per * stride : regs;
   }
 }
 
@@ -447,6 +425,17 @@ __global__ void crc_fold_kernel(const uint32_t* __restrict__ regs,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Host side: shared-memory sizes, the occupancy query, the fold launch.
+// ---------------------------------------------------------------------------
+
+// Kernel ids of lz_resident.
+enum KernelId : int { kFused = 0, kGfApplyVec = 1, kGfApplyByte = 2, kBlockCrc = 3, kBlockCrcLane = 4 };
+
+// Slabs block_crc_kernel takes a step (its template argument), by the
+// `rows` argument of the launcher.
+#define LZ_CRC_ROWS(X) X(4) X(8) X(12)
+
 long long grid_for(long long units, int threads, long long cap) {
   long long g = (units + threads - 1) / threads;
   return g < 1 ? 1 : (g > cap ? cap : g);
@@ -462,6 +451,59 @@ size_t fused_smem_bytes(int k, int m, int threads, int levels) {
               static_cast<size_t>(k + m) * span_slot(threads));
 }
 
+// Shared memory of gf_apply_kernel: the packed GF tables.
+size_t gf_smem_bytes(int w, int r) {
+  return 4 * static_cast<size_t>((w + 3) / 4) * r * kGfRowWords;
+}
+
+// Shared memory of block_crc_kernel: the CRC tables, the tree's shift
+// tables, then two buffers of `rows` rows of span registers.
+size_t crc_smem_bytes(int threads, int levels, int rows) {
+  return 4 * (kCrcTableWords + static_cast<size_t>(levels) * kShiftWords +
+              2 * static_cast<size_t>(rows) * span_slot(threads));
+}
+
+// Shared memory of block_crc_lane_kernel: the lane copies, the tree's
+// shift tables, two buffers of steps * threads / 2^levels rows.
+size_t crc_lane_smem_bytes(int threads, int levels, int steps) {
+  const size_t rows = static_cast<size_t>(steps) * (threads >> levels);
+  return 4 * (kLaneTableWords + static_cast<size_t>(levels) * kShiftWords +
+              2 * rows * span_slot(1 << levels));
+}
+
+// CTAs of `kernel` with `threads` threads and `smem` bytes of dynamic
+// shared memory that fit on the current device at once (at least 1), or
+// minus the CUDA error. Also lets the kernel take the device's opt-in
+// shared memory.
+template <typename Kernel>
+int resident_ctas(Kernel kernel, int threads, size_t smem) {
+  int device = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+// crc_fold_kernel over `count` rows of `splits` slab registers.
+cudaError_t launch_fold(const uint32_t* regs, long long count, int splits,
+                        const void* slab_tab, uint32_t k_const, void* out,
+                        const void* expected, void* ok, cudaStream_t s) {
+  const int threads = 256;  // >= kShiftWords
+  const long long grid = grid_for(count, threads, 65536);
+  crc_fold_kernel<<<static_cast<unsigned>(grid), threads, 0, s>>>(
+      regs, count, splits, static_cast<const uint32_t*>(slab_tab), k_const,
+      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(expected),
+      static_cast<uint8_t*>(ok));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -470,62 +512,125 @@ size_t fused_smem_bytes(int k, int m, int threads, int levels) {
 
 extern "C" {
 
-int lz_gf_apply(const void* bigm, const void* data, void* out, int w, int r,
-                long long n, int vec16, void* stream) {
+// CTAs of one kernel (KernelId) that fit on the current device at once
+// for this shape (at least 1), or minus the CUDA error; also lets the
+// kernel take the device's opt-in shared memory. rows_in, rows_out: k and
+// m of the fused kernel, r and w of the GF apply, the slabs a step of the
+// block CRC. The wrappers ask once per shape and device and pass the
+// count to every launch.
+int lz_resident(int kernel, int threads, int rows_in, int rows_out, int levels) {
+  switch (kernel) {
+    case kFused:
+      return resident_ctas(fused_encode_crc_kernel, threads,
+                           fused_smem_bytes(rows_in, rows_out, threads, levels));
+    case kGfApplyVec:
+      return resident_ctas(gf_apply_kernel<true>, threads, gf_smem_bytes(rows_out, rows_in));
+    case kGfApplyByte:
+      return resident_ctas(gf_apply_kernel<false>, threads, gf_smem_bytes(rows_out, rows_in));
+    case kBlockCrc:
+#define LZ_CASE(R)                                                        \
+  if (rows_in == R)                                                       \
+    return resident_ctas(block_crc_kernel<R>, threads,                    \
+                         crc_smem_bytes(threads, levels, R));
+      LZ_CRC_ROWS(LZ_CASE)
+#undef LZ_CASE
+      break;
+    case kBlockCrcLane:
+      if (rows_in == 4)
+        return resident_ctas(block_crc_lane_kernel<4>, threads,
+                             crc_lane_smem_bytes(threads, levels, 4));
+      if (rows_in == 8)
+        return resident_ctas(block_crc_lane_kernel<8>, threads,
+                             crc_lane_smem_bytes(threads, levels, 8));
+      break;
+  }
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out (w, n) = the matrix of gf_tabs applied to data (r, n), over a grid
+// of at most `resident` CTAs (lz_resident). vec16: n % 16 == 0 and the
+// rows 16-byte aligned.
+int lz_gf_apply(const void* gf_tabs, const void* data, void* out, int w, int r,
+                long long n, int vec16, int resident, void* stream) {
   const int threads = 256;
-  const size_t smem = static_cast<size_t>(w) * r * 32;
+  const size_t smem = gf_smem_bytes(w, r);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* mat = static_cast<const int8_t*>(bigm);
+  const auto* tabs = static_cast<const uint32_t*>(gf_tabs);
   const auto* in = static_cast<const uint8_t*>(data);
   auto* o = static_cast<uint8_t*>(out);
-  if (vec16) {
-    const long long grid = grid_for(n / 16, threads, 4096);
-    gf_apply_kernel<true><<<static_cast<unsigned>(grid), threads, smem, s>>>(mat, in, o, w, r, n);
-  } else {
-    const long long grid = grid_for(n, threads, 4096);
-    gf_apply_kernel<false><<<static_cast<unsigned>(grid), threads, smem, s>>>(mat, in, o, w, r, n);
+  const long long grid = grid_for(vec16 ? n / 16 : n, threads, resident);
+  if (vec16)
+    gf_apply_kernel<true><<<static_cast<unsigned>(grid), threads, smem, s>>>(tabs, in, o, w, r, n);
+  else
+    gf_apply_kernel<false><<<static_cast<unsigned>(grid), threads, smem, s>>>(tabs, in, o, w, r, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[b] = crc32 of blocks[b, 0:bs]: block_crc_kernel over a grid of at
+// most `resident` CTAs of `threads` threads (bs = splits * 16 * threads),
+// `rows` slabs a step, into regs (nblocks * splits words), then the fold
+// with slab_tab = S^(16 * threads). One call launches both.
+int lz_block_crcs(const void* blocks, long long nblocks, int threads, int splits,
+                  int rows, const void* crc_tabs, const void* level_tabs, int levels,
+                  const void* slab_tab, unsigned int k_const, int resident,
+                  void* regs, void* out, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const long long slabs = nblocks * splits;
+  const long long steps = (slabs + rows - 1) / rows;
+  const long long grid = steps < resident ? steps : resident;
+  const size_t smem = crc_smem_bytes(threads, levels, rows);
+  auto* r = static_cast<uint32_t*>(regs);
+  bool launched = false;
+#define LZ_CASE(R)                                                              \
+  if (rows == R) {                                                              \
+    block_crc_kernel<R><<<static_cast<unsigned>(grid), threads, smem, s>>>(     \
+        static_cast<const uint8_t*>(blocks), slabs,                             \
+        static_cast<const uint32_t*>(crc_tabs),                                 \
+        static_cast<const uint32_t*>(level_tabs), levels, r);                   \
+    launched = true;                                                            \
   }
-  return static_cast<int>(cudaGetLastError());
+  LZ_CRC_ROWS(LZ_CASE)
+#undef LZ_CASE
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_fold(r, nblocks, splits, slab_tab, k_const, out,
+                                      nullptr, nullptr, s));
 }
 
-int lz_block_crcs(const void* blocks, long long nblocks, int bs, int threads,
-                  const void* level_cols, int levels, unsigned int k_const,
-                  void* out, void* stream) {
-  const long long grid = nblocks < 65536 ? nblocks : 65536;
-  block_crc_kernel<<<static_cast<unsigned>(grid), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(blocks), nblocks, bs,
-      static_cast<const uint32_t*>(level_cols), levels, k_const,
-      static_cast<uint32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+// lz_block_crcs with block_crc_lane_kernel<steps>: CTAs of `threads`
+// threads over slabs of 2^levels spans.
+int lz_block_crcs_lane(const void* blocks, long long nblocks, int threads, int splits,
+                       int steps, const void* crc_tabs, const void* level_tabs,
+                       int levels, const void* slab_tab, unsigned int k_const,
+                       int resident, void* regs, void* out, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const long long slabs = nblocks * splits;
+  const long long per = static_cast<long long>(steps) * (threads >> levels);
+  const long long n = (slabs + per - 1) / per;
+  const long long grid = n < resident ? n : resident;
+  const size_t smem = crc_lane_smem_bytes(threads, levels, steps);
+  auto* r = static_cast<uint32_t*>(regs);
+  const auto* b = static_cast<const uint8_t*>(blocks);
+  const auto* ct = static_cast<const uint32_t*>(crc_tabs);
+  const auto* lt = static_cast<const uint32_t*>(level_tabs);
+  if (steps == 4)
+    block_crc_lane_kernel<4><<<static_cast<unsigned>(grid), threads, smem, s>>>(b, slabs, levels, ct, lt, r);
+  else if (steps == 8)
+    block_crc_lane_kernel<8><<<static_cast<unsigned>(grid), threads, smem, s>>>(b, slabs, levels, ct, lt, r);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_fold(r, nblocks, splits, slab_tab, k_const, out,
+                                      nullptr, nullptr, s));
 }
 
-// CTAs of fused_encode_crc_kernel that fit on the current device at once
-// for this shape (at least 1), or minus the CUDA error. Also lets the
-// kernel take the device's opt-in shared memory. The wrapper calls it
-// once per shape and device and passes the count to every launch.
-int lz_fused_resident(int k, int m, int threads, int levels) {
-  const size_t smem = fused_smem_bytes(k, m, threads, levels);
-  int device = 0, sms = 0, optin = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_encode_crc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_encode_crc_kernel, threads, smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return sms * (per_sm > 0 ? per_sm : 1);
-}
-
-// The fused pass over a grid of at most `resident` CTAs
-// (lz_fused_resident), each copying the tables once and walking slabs,
-// then the fold of the registers of the rows whose CRCs are returned: all
-// k + m rows, or with `expected` (a rebuild) the m output rows, compared
-// into `ok`. crc_out is (rows, n / bs) or (m, n / bs).
+// The fused pass over a grid of at most `resident` CTAs (lz_resident),
+// each copying the tables once and walking slabs, then the fold of the
+// registers of the rows whose CRCs are returned: all k + m rows, or with
+// `expected` (a rebuild) the m output rows, compared into `ok`. crc_out
+// is (rows, n / bs) or (m, n / bs).
 int lz_fused_encode_crc(const void* gf_tabs, const void* data, int k, int m,
                         long long n, int bs, int threads, int splits,
                         const void* crc_tabs, const void* level_tabs, int levels,
@@ -547,14 +652,8 @@ int lz_fused_encode_crc(const void* gf_tabs, const void* data, int k, int m,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int row0 = crc_inputs ? 0 : k;
-  const long long count = (k + m - row0) * nb;
-  const int fold_threads = 256;  // >= kShiftWords
-  const long long fold_grid = grid_for(count, fold_threads, 65536);
-  crc_fold_kernel<<<static_cast<unsigned>(fold_grid), fold_threads, 0, s>>>(
-      r + row0 * nb * splits, count, splits, static_cast<const uint32_t*>(slab_tab),
-      k_const, static_cast<uint32_t*>(crc_out), static_cast<const uint32_t*>(expected),
-      static_cast<uint8_t*>(ok));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_fold(r + row0 * nb * splits, (k + m - row0) * nb, splits,
+                                      slab_tab, k_const, crc_out, expected, ok, s));
 }
 
 }  // extern "C"

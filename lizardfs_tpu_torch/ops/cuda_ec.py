@@ -37,7 +37,13 @@ LAUNCHES = {
 }
 
 _CRC_THREADS = 256  # CTA size of the CRC kernels (a power of two)
+_GF_THREADS = 256  # CTA size of the GF apply kernel
+_CRC_ROWS = 8  # slabs the block CRC kernel takes a step (4, 8 or 12)
 _VEC = 16  # bytes a thread loads per row and step
+# kernel ids of lz_resident (csrc/ec_kernels.cu: KernelId)
+_FUSED, _GF_APPLY_VEC, _GF_APPLY_BYTE, _BLOCK_CRC, _BLOCK_CRC_LANE = range(5)
+_CRC_LANE_STEPS = 0  # loads a step of the lane-table block CRC kernel; 0: the shared-table one
+_CRC_LANE_THREADS = 1024
 
 
 def reset_launches() -> None:
@@ -105,17 +111,6 @@ def _gf_dims(bigm: torch.Tensor, parts: torch.Tensor) -> tuple[int, int]:
     return w, r
 
 
-# a 32x32 GF(2) matrix as the 32 column words block_crc_kernel applies
-shift_columns = kernel_tables.column_words
-
-
-@functools.lru_cache(maxsize=64)
-def _shift_table(nbytes: tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """(len(nbytes), 32) column words of S^n for each n, on ``device``."""
-    cols = np.stack([shift_columns(crc32.shift_matrix(n)) for n in nbytes])
-    return torch.from_numpy(cols.view(np.int32)).to(device)
-
-
 def _words(table: np.ndarray, device: torch.device) -> torch.Tensor:
     """A uint32 table as an int32 tensor of the same bits on ``device``."""
     return torch.from_numpy(np.array(table, dtype=np.uint32).view(np.int32)).to(device)
@@ -140,7 +135,7 @@ def _gf_table(matrix: bytes, shape: tuple[int, int], device: torch.device) -> to
     return _words(kernel_tables.packed_gf_tables(bigm), device)
 
 
-# Packed GF tables of the matrix tensors the fused wrappers were given:
+# Packed GF tables of the matrix tensors the GF wrappers were given:
 # id(tensor) -> (weak reference, version counter, table). A matrix on the
 # card is read back (which waits for the card) only the first time it is
 # seen and after it was written in place.
@@ -159,6 +154,19 @@ def _gf_tables_for(bigm: torch.Tensor) -> torch.Tensor:
     return table
 
 
+@functools.lru_cache(maxsize=256)
+def _resident(kernel: int, threads: int, rows_in: int, rows_out: int, levels: int,
+              device: torch.device) -> int:
+    """CTAs of one kernel that fit on ``device`` at once for this shape
+    (``lz_resident``), asked once per shape and device, so that a call
+    runs no occupancy query."""
+    with torch.cuda.device(device):
+        resident = _build.library().lz_resident(kernel, threads, rows_in, rows_out, levels)
+    if resident < 0:
+        raise RuntimeError(f"occupancy query of kernel {kernel} failed: error {-resident}")
+    return resident
+
+
 def encode(bigm: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """GF(2^8) matrix apply: (r, N) uint8 -> (w, N) uint8 for an (8w, 8r)
     bit-plane matrix; encode or recover, as the matrix says. Any N."""
@@ -169,11 +177,14 @@ def encode(bigm: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     out = torch.empty((w, n), dtype=torch.uint8, device=data.device)
     if n == 0:
         return out
-    vec = int(n % _VEC == 0 and data.data_ptr() % _VEC == 0)
+    vec = n % _VEC == 0 and data.data_ptr() % _VEC == 0
+    resident = _resident(_GF_APPLY_VEC if vec else _GF_APPLY_BYTE, _GF_THREADS, r, w, 0,
+                         data.device)
+    gf_tabs = _gf_tables_for(bigm)
     lib = _build.library()
     with torch.cuda.device(data.device):
-        _launch("gf_apply", lib.lz_gf_apply, bigm.data_ptr(), data.data_ptr(),
-                out.data_ptr(), w, r, n, vec, _stream(data))
+        _launch("gf_apply", lib.lz_gf_apply, gf_tabs.data_ptr(), data.data_ptr(),
+                out.data_ptr(), w, r, n, int(vec), resident, _stream(data))
     LAUNCHES["encode"] += 1
     return out
 
@@ -182,6 +193,19 @@ def _crc_threads(block_size: int) -> int:
     # bs = 64 * 2^a, so bs // 16 is a power of two: every thread's span
     # is a whole number of 16-byte vectors
     return min(_CRC_THREADS, block_size // _VEC)
+
+
+@functools.lru_cache(maxsize=64)
+def _crc_plan(block_size: int, device: torch.device) -> tuple:
+    """What the CRC kernels and the fold take for block_size blocks on
+    ``device``, worked out once: (threads, splits, levels, CRC tables,
+    level shift tables, slab shift table, K)."""
+    threads = _crc_threads(block_size)
+    slab = threads * _VEC
+    levels = threads.bit_length() - 1
+    return (threads, block_size // slab, levels, _crc_table(device),
+            _shift_nibble_table(tuple(_VEC << l for l in range(levels)), device),
+            _shift_nibble_table((slab,), device), crc32.zeros_crc(block_size))
 
 
 def block_crcs(blocks: torch.Tensor, block_size: int = MFSBLOCKSIZE) -> torch.Tensor:
@@ -193,19 +217,29 @@ def block_crcs(blocks: torch.Tensor, block_size: int = MFSBLOCKSIZE) -> torch.Te
     if not _on_card(blocks):
         return torch_ec.block_crcs(blocks, block_size)
     nblocks = blocks.shape[0]
-    out = torch.empty(nblocks, dtype=torch.int32, device=blocks.device)
+    dev = blocks.device
+    out = torch.empty(nblocks, dtype=torch.int32, device=dev)
     if nblocks == 0:
         return out
     _check_aligned(blocks, "blocks")
-    threads = _crc_threads(block_size)
-    span = block_size // threads
-    levels = threads.bit_length() - 1
-    cols = _shift_table(tuple(span << l for l in range(levels)), blocks.device)
+    threads, splits, levels, crc_tab, level_tabs, slab_tab, k_const = _crc_plan(block_size, dev)
+    regs = torch.empty(nblocks * splits, dtype=torch.int32, device=dev)
     lib = _build.library()
-    with torch.cuda.device(blocks.device):
-        _launch("block_crc", lib.lz_block_crcs, blocks.data_ptr(), nblocks, block_size,
-                threads, cols.data_ptr(), levels, crc32.zeros_crc(block_size),
-                out.data_ptr(), _stream(blocks))
+    if _CRC_LANE_STEPS:
+        resident = _resident(_BLOCK_CRC_LANE, _CRC_LANE_THREADS, _CRC_LANE_STEPS, 0, levels, dev)
+        with torch.cuda.device(dev):
+            _launch("block_crc", lib.lz_block_crcs_lane, blocks.data_ptr(), nblocks,
+                    _CRC_LANE_THREADS, splits, _CRC_LANE_STEPS, crc_tab.data_ptr(),
+                    level_tabs.data_ptr(), levels, slab_tab.data_ptr(), k_const, resident,
+                    regs.data_ptr(), out.data_ptr(), _stream(blocks))
+        LAUNCHES["block_crcs"] += 1
+        return out
+    resident = _resident(_BLOCK_CRC, threads, _CRC_ROWS, 0, levels, dev)
+    with torch.cuda.device(dev):
+        _launch("block_crc", lib.lz_block_crcs, blocks.data_ptr(), nblocks, threads, splits,
+                _CRC_ROWS, crc_tab.data_ptr(), level_tabs.data_ptr(), levels,
+                slab_tab.data_ptr(), k_const, resident, regs.data_ptr(), out.data_ptr(),
+                _stream(blocks))
     LAUNCHES["block_crcs"] += 1
     return out
 
@@ -219,24 +253,6 @@ def _fused_checks(bigm, data, block_size) -> tuple[int, int, int]:
     return w, r, n // block_size
 
 
-@functools.lru_cache(maxsize=64)
-def _fused_plan(r: int, w: int, block_size: int, device: torch.device) -> tuple:
-    """What the fused kernel and its fold take for r input and w output
-    rows of block_size blocks on ``device``, worked out once: (threads,
-    splits, levels, CRC tables, level shift tables, slab shift table, K,
-    CTAs resident on the card)."""
-    threads = _crc_threads(block_size)
-    slab = threads * _VEC
-    levels = threads.bit_length() - 1
-    with torch.cuda.device(device):
-        resident = _build.library().lz_fused_resident(r, w, threads, levels)
-    if resident < 0:
-        raise RuntimeError(f"occupancy query of the fused kernel failed: error {-resident}")
-    return (threads, block_size // slab, levels, _crc_table(device),
-            _shift_nibble_table(tuple(_VEC << l for l in range(levels)), device),
-            _shift_nibble_table((slab,), device), crc32.zeros_crc(block_size), resident)
-
-
 def _fused_launch(bigm, data, block_size, expected=None):
     """Launch the fused kernel and the fold, with one library call. With
     ``expected`` (the lost parts' stored CRCs) the input rows' CRCs are
@@ -246,8 +262,8 @@ def _fused_launch(bigm, data, block_size, expected=None):
     w, (r, n) = bigm.shape[0] // 8, data.shape
     nb = n // block_size
     dev = data.device
-    threads, splits, levels, crc_tab, level_tabs, slab_tab, k_const, resident = (
-        _fused_plan(r, w, block_size, dev))
+    threads, splits, levels, crc_tab, level_tabs, slab_tab, k_const = _crc_plan(block_size, dev)
+    resident = _resident(_FUSED, threads, r, w, levels, dev)
     gf_tabs = _gf_tables_for(bigm)
     crc_inputs = expected is None
     rows = r + w

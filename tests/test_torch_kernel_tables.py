@@ -1,13 +1,15 @@
-"""The host-built tables of the fused encode + CRC kernel, held against the
-JAX package on the CPU.
+"""The host-built tables of the CUDA kernels, held against the JAX package
+on the CPU.
 
-The CUDA kernel itself runs only on the card (``chip_smoke.py``). What it
-reads is built here by ``lizardfs_tpu_torch.ops.kernel_tables``, and its
-arithmetic is emulated in numpy step by step: packed GF lookups, the 4x4
-byte transpose with the kernel's ``__byte_perm`` selectors, slicing-by-8
-span registers, the nibble-table CRC tree and the slab fold. The emulation
-must give the bytes and CRCs of ``pallas_ec`` (interpret mode) and
-``jax_ec``. Every value is an integer: the tolerance is 0 everywhere.
+The CUDA kernels themselves run only on the card (``chip_smoke.py``). What
+they read is built here by ``lizardfs_tpu_torch.ops.kernel_tables``, and
+their arithmetic is emulated in numpy step by step: packed GF lookups on
+the vector and the byte path, the 4x4 byte transpose with the kernels'
+``__byte_perm`` selectors, slicing-by-8 span registers, the nibble-table
+CRC tree, the block CRC kernel's walk of slabs and the slab fold. The
+emulation must give the bytes and CRCs of ``pallas_ec`` (interpret mode)
+and ``jax_ec`` or the golden CRCs. Every value is an integer: the
+tolerance is 0 everywhere.
 """
 
 import numpy as np
@@ -139,11 +141,22 @@ def _span_registers(rows):
     return crc
 
 
-def _packed_apply(bigm, data):
-    """Parity rows through packed lookups and the byte transpose."""
+def _packed_apply(bigm, data, vec=True):
+    """Output rows through packed lookups: the vector path (16 accumulator
+    words per 16-byte unit, then the byte transpose) or the byte path (one
+    accumulator word per byte; output row 4q+g takes its byte g)."""
     tabs = kernel_tables.packed_gf_tables(bigm)
     w = np.asarray(bigm).shape[0] // 8
     k, n = data.shape
+    if not vec:
+        out = np.zeros((4 * tabs.shape[0], n), dtype=np.uint8)
+        for q, group in enumerate(tabs):
+            acc = np.zeros(n, dtype=np.uint32)
+            for j in range(k):
+                acc ^= group[j][data[j] & 15] ^ group[j][16 + (data[j] >> 4)]
+            for g in range(4):
+                out[4 * q + g] = (acc >> np.uint32(8 * g)) & 0xFF
+        return out[:w]
     x = data.reshape(k, n // VEC, VEC)
     out = np.zeros((4 * tabs.shape[0], n // VEC, VEC), dtype=np.uint8)
     for q, group in enumerate(tabs):
@@ -209,6 +222,89 @@ def test_emulated_fused_decode_verify_matches_pallas(k, m, lost, interpret_mode)
     np.testing.assert_array_equal(crcs, w_crcs)
     np.testing.assert_array_equal(crcs == stored, w_ok)
     assert w_ok.all()
+
+
+# ---------------------------------------------------------------------------
+# numpy emulation of gf_apply_kernel and of block_crc_kernel + crc_fold_kernel
+# ---------------------------------------------------------------------------
+
+GF_N = 16384  # a multiple of the Pallas encode tile at every case below
+MATRICES = ["ec(8,4)", "ec(5,7)", "ec(32,32)", "rec(8,4)[3]"]
+
+
+@pytest.mark.parametrize("vec", [True, False], ids=["vec16", "bytes"])
+@pytest.mark.parametrize("name", MATRICES)
+def test_emulated_gf_apply_matches_pallas_and_jax(name, vec, interpret_mode):
+    """Both paths of gf_apply_kernel: groups of four, of three (ec(5,7)),
+    eight groups (ec(32,32)) and one row (a one-part rebuild)."""
+    _, bigm = _matrix_case(name)
+    bigm = np.asarray(bigm)
+    data = np.random.default_rng(len(name)).integers(
+        0, 256, (bigm.shape[1] // 8, GF_N), dtype=np.uint8)
+    want = np.asarray(pallas_ec.encode(bigm, data))
+    np.testing.assert_array_equal(np.asarray(jax_ec.apply_gf_bitmatrix(bigm, data)), want)
+    np.testing.assert_array_equal(_packed_apply(bigm, data, vec), want)
+
+
+@pytest.mark.parametrize("name", MATRICES)
+def test_emulated_gf_apply_byte_path_takes_ragged_n(name):
+    """The byte path at a length that is no multiple of 16 (the Pallas
+    encode takes only whole tiles; jax_ec takes any length)."""
+    _, bigm = _matrix_case(name)
+    bigm = np.asarray(bigm)
+    data = np.random.default_rng(4097).integers(
+        0, 256, (bigm.shape[1] // 8, 4097), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        _packed_apply(bigm, data, vec=False), np.asarray(jax_ec.apply_gf_bitmatrix(bigm, data)))
+
+
+def _block_crc_kernel(blocks, block_size, rows, grid=None):
+    """block_crc_kernel's walk, then the fold: slabs of 16 * T bytes tile
+    the blocks; CTA b of `grid` takes `rows` slabs a step at steps b, b +
+    grid, ... (fewer at the end), folds them in one nibble-table tree and
+    writes one register per slab; the fold then runs per block."""
+    threads = min(THREADS, block_size // VEC)
+    levels = threads.bit_length() - 1
+    slab = threads * VEC
+    flat = np.ascontiguousarray(blocks).reshape(-1)
+    slabs = flat.size // slab
+    steps = -(-slabs // rows)
+    grid = steps if grid is None else min(grid, steps)
+    level_tabs = [kernel_tables.shift_nibble_tables(VEC << l) for l in range(levels)]
+    regs_out = np.zeros(slabs, dtype=np.uint32)
+    written = np.zeros(slabs, dtype=int)
+    for b in range(grid):
+        for c0 in range(b * rows, slabs, grid * rows):
+            n = min(rows, slabs - c0)
+            regs = _span_registers(flat[c0 * slab:(c0 + n) * slab].reshape(n, slab))
+            for tab in level_tabs:
+                regs = _shift(tab, regs[:, 0::2]) ^ regs[:, 1::2]
+            regs_out[c0:c0 + n] = regs[:, 0]
+            written[c0:c0 + n] += 1
+    assert (written == 1).all()
+    per_block = regs_out.reshape(-1, block_size // slab)
+    fold = kernel_tables.shift_nibble_tables(slab)
+    reg = np.zeros(per_block.shape[0], dtype=np.uint32)
+    for s in range(per_block.shape[1]):
+        reg = _shift(fold, reg) ^ per_block[:, s]
+    return reg ^ np.uint32(crc32.zeros_crc(block_size))
+
+
+@pytest.mark.parametrize("bs,count,grid", [
+    (64, 13, None),  # 4 threads a CTA, one slab a block, 13 slabs: no multiple of the step
+    (64, 13, 1),  # one CTA walks every step
+    (4096, 13, 2),
+    (4096, 1, None),  # one block
+    (65536, 3, 4),  # 16 slabs a block, 48 slabs over 4 CTAs
+    (65536, 5, None),
+])
+def test_emulated_block_crcs_match_pallas_and_golden(bs, count, grid, interpret_mode):
+    blocks = np.random.default_rng(bs + count).integers(0, 256, (count, bs), dtype=np.uint8)
+    want = ref_crc32.block_crcs_golden(blocks)
+    got = _block_crc_kernel(blocks, bs, cuda_ec._CRC_ROWS, grid)
+    np.testing.assert_array_equal(got, want)
+    if bs >= 128:  # the Pallas block_crcs takes 128-byte sub-blocks
+        np.testing.assert_array_equal(np.asarray(pallas_ec.block_crcs(blocks, bs)), want)
 
 
 def test_gf_tables_follow_the_matrix_tensor():

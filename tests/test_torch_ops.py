@@ -23,7 +23,7 @@ from lizardfs_tpu.ops import pallas_ec
 from lizardfs_tpu.ops import rs as ref_rs
 from lizardfs_tpu_torch import constants, params
 from lizardfs_tpu_torch.models import flagship
-from lizardfs_tpu_torch.ops import bitplane, crc32, cuda_ec, gf256, rs, torch_ec
+from lizardfs_tpu_torch.ops import bitplane, crc32, cuda_ec, gf256, kernel_tables, rs, torch_ec
 
 GEOMETRIES = [(2, 1), (3, 2), (4, 2), (8, 2), (8, 4), (20, 4), (21, 4), (10, 5), (32, 32)]
 
@@ -251,9 +251,10 @@ def test_crc_words_round_trip():
 
 
 def test_shift_columns_apply_the_matrix():
-    """The kernels' 32-word column form of a shift matrix applies it."""
+    """The 32-word column form of a shift matrix, from which the kernels'
+    nibble tables of the shift are built, applies it."""
     mat = crc32.shift_matrix(4096)
-    cols = cuda_ec.shift_columns(mat)
+    cols = kernel_tables.column_words(mat)
     v = 0x89ABCDEF
     bits = np.array([(v >> i) & 1 for i in range(32)], dtype=np.uint32)
     want = (mat.astype(np.uint32) @ bits) & 1
