@@ -57,11 +57,10 @@ SASS = {  # kernel: pattern of its (mangled) name in cuobjdump's listing
     "crc_fold_kernel": "crc_fold_kernel",
     "gf_apply_kernel<true>": "gf_apply_kernelILb1E",
     "gf_apply_kernel<false>": "gf_apply_kernelILb0E",
-    "block_crc_kernel<4>": "block_crc_kernelILi4E",
-    "block_crc_kernel<8>": "block_crc_kernelILi8E",
-    "block_crc_kernel<12>": "block_crc_kernelILi12E",
-    "block_crc_lane_kernel<4>": "block_crc_lane_kernelILi4E",
-    "block_crc_lane_kernel<8>": "block_crc_lane_kernelILi8E",
+    "block_crc_kernel<8, 1>": "block_crc_kernelILi8ELi1E",
+    "block_crc_kernel<4, 2>": "block_crc_kernelILi4ELi2E",
+    "block_crc_kernel<2, 4>": "block_crc_kernelILi2ELi4E",
+    "block_crc_kernel<1, 8>": "block_crc_kernelILi1ELi8E",
 }
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
@@ -226,9 +225,11 @@ def main() -> int:
     # block CRCs: small blocks (4 threads a CTA), slab counts that are no
     # multiple of the slabs a step (7, 33, 10), one block, and more steps
     # than the resident grid takes at once
-    crc_grid = cuda_ec._resident(cuda_ec._BLOCK_CRC, cuda_ec._CRC_THREADS, cuda_ec._CRC_ROWS,
-                                 0, 8, dev) * cuda_ec._CRC_ROWS
-    require(20011 > crc_grid, f"20011 slabs exceed the {crc_grid} the grid takes a step")
+    steps, vecs = cuda_ec._CRC_SHAPE
+    spans, splits, levels, *_ = cuda_ec._crc_plan(4096, 16 * vecs, dev)
+    crc_grid = cuda_ec._resident(cuda_ec._BLOCK_CRC, cuda_ec._CRC_THREADS, steps, vecs,
+                                 levels, dev) * steps * (cuda_ec._CRC_THREADS // spans)
+    require(20011 * splits > crc_grid, f"20011 blocks exceed the {crc_grid} slabs a grid step")
     for bs, count in ((64, 7), (4096, 33), (8192, 5), (BS, 1), (4096, 20011)):
         b = rand_bytes(count, bs)
         same("block_crcs", cuda_ec.block_crcs(b, bs), torch_ec.block_crcs(b, bs),
@@ -404,25 +405,22 @@ def main() -> int:
             "kernel_iters": k_iters, "plain_iters": p_iters, "windows": WINDOWS,
             "card": card,
         }))
-    # block CRC designs, in turns: shared slicing-by-8 tables at 4, 8 or
-    # 12 slabs a step, lane-private slicing-by-4 tables at 4 or 8 loads a
-    # step
-    shipped = cuda_ec._CRC_ROWS, cuda_ec._CRC_LANE_STEPS
-    variants = ((8, 0), (4, 0), (12, 0), (8, 4), (8, 8))
-    for rows_per_step, lane_steps in variants + variants[::-1]:
-        cuda_ec._CRC_ROWS, cuda_ec._CRC_LANE_STEPS = rows_per_step, lane_steps
-        what = f"block CRC, {rows_per_step} slabs or {lane_steps} lane loads a step"
+    # block CRC shapes, in turns: (loads a step, 16-byte vectors a span)
+    shipped = cuda_ec._CRC_SHAPE
+    variants = ((8, 1), (4, 2), (2, 4), (1, 8))
+    for shape in variants + variants[::-1]:
+        cuda_ec._CRC_SHAPE = shape
+        what = f"block CRC, shape {shape}"
         require(torch.equal(cuda_ec.block_crcs(blocks, BS), crcs), what)
         for bs, count in ((64, 7), (4096, 33), (8192, 5), (BS, 1)):
             b = rand_bytes(count, bs)
             same("block_crcs", cuda_ec.block_crcs(b, bs), torch_ec.block_crcs(b, bs),
                  f"{what}: bs={bs} x {count}", crc=True)
         r_ms, _ = time_ms(lambda: cuda_ec.block_crcs(blocks, BS))
-        print(json.dumps({"crc_rows": rows_per_step, "crc_lane_steps": lane_steps,
-                          "kernel_ms": r_ms,
+        print(json.dumps({"crc_shape": shape, "kernel_ms": r_ms,
                           "device_ms": device_ms(lambda: cuda_ec.block_crcs(blocks, BS)),
                           "card": card}))
-    cuda_ec._CRC_ROWS, cuda_ec._CRC_LANE_STEPS = shipped
+    cuda_ec._CRC_SHAPE = shipped
     # the encoder seam end to end: numpy in, pinned staging, kernels,
     # numpy out (host clock around work that ends synchronised)
     def wall_ms(fn, reps=5):

@@ -88,7 +88,6 @@ namespace {
 constexpr int kCrcTableWords = 8 * 256;  // slicing-by-8 tables
 constexpr int kShiftWords = 8 * 16;      // one shift as 8 nibble tables
 constexpr int kGfRowWords = 32;          // 16 lo + 16 hi packed words
-constexpr int kLaneTableWords = 4 * 256 * 32;  // slicing-by-4, a copy a lane
 
 // ---------------------------------------------------------------------------
 // Device functions: host-built tables, packed GF lookups, raw CRC
@@ -109,22 +108,6 @@ __device__ __forceinline__ uint32_t crc_raw8(const uint32_t (*t)[256],
 __device__ __forceinline__ uint32_t crc_raw16(const uint32_t (*t)[256],
                                               uint32_t crc, const uint4 v) {
   return crc_raw8(t, crc_raw8(t, crc, v.x, v.y), v.z, v.w);
-}
-
-// Raw register update over the 4 bytes of x (little-endian) with
-// slicing-by-4 tables that each lane keeps a copy of: t[(s * 256 + i) *
-// 32] is table s, entry i, of the calling lane's copy (t = base + lane),
-// so the 32 lanes of a warp always read 32 distinct banks.
-__device__ __forceinline__ uint32_t crc_lane4(const uint32_t* t, uint32_t crc,
-                                              uint32_t x) {
-  x ^= crc;
-  return t[(768 + (x & 0xffu)) * 32] ^ t[(512 + ((x >> 8) & 0xffu)) * 32] ^
-         t[(256 + ((x >> 16) & 0xffu)) * 32] ^ t[(x >> 24) * 32];
-}
-
-__device__ __forceinline__ uint32_t crc_lane16(const uint32_t* t, uint32_t crc,
-                                               const uint4 v) {
-  return crc_lane4(t, crc_lane4(t, crc_lane4(t, crc_lane4(t, crc, v.x), v.y), v.z), v.w);
 }
 
 // dst[0:words] = src[0:words] with 16-byte loads; words % 4 == 0 and both
@@ -249,14 +232,17 @@ __global__ void __launch_bounds__(256) gf_apply_kernel(
   }
 }
 
-// Raw CRC registers of the slabs of 16 * blockDim.x bytes that tile the
-// blocks: regs_out[c] is the register of bytes [c * slab, (c + 1) * slab).
-// crc_tabs (8, 256) and level_tabs (levels, 8, 16) are the host-built
-// tables of kernel_tables.py; level l shifts by 16 * 2^l bytes. A CTA
-// takes kRows consecutive slabs a step (fewer at the end) and folds them
-// in one tree; two register buffers alternate between steps, so a step
-// needs no barrier after its registers are read out.
-template <int kRows>
+// Raw CRC registers of the slabs that tile the blocks: a slab is T =
+// 2^levels spans of kVecs * 16 bytes, and regs_out[c] is the register of
+// bytes [c * slab, (c + 1) * slab). crc_tabs (8, 256) and level_tabs
+// (levels, 8, 16) are the host-built tables of kernel_tables.py; level l
+// shifts by 2^l spans. A load covers blockDim.x spans, G = blockDim.x / T
+// slabs (T <= blockDim.x): thread t takes span t % T of slab t / T, so
+// the CTA reads blockDim.x * kVecs * 16 contiguous bytes. A step takes
+// kSteps loads (fewer slabs at the end) and folds their kSteps * G rows in
+// one tree; two register buffers alternate between steps, so a step needs
+// no barrier after its registers are read out.
+template <int kSteps, int kVecs>
 __global__ void __launch_bounds__(256) block_crc_kernel(
     const uint8_t* __restrict__ blocks, long long slabs,
     const uint32_t* __restrict__ crc_tabs,
@@ -270,66 +256,30 @@ __global__ void __launch_bounds__(256) block_crc_kernel(
   copy_table(lvl, level_tabs, levels * kShiftWords);
   __syncthreads();
   const uint32_t(*tabs)[256] = reinterpret_cast<const uint32_t(*)[256]>(sm);
-  const int stride = span_slot(blockDim.x);
-  const int slot = span_slot(threadIdx.x);
-  const long long slab = 16LL * blockDim.x;
-  uint32_t* buf = regs;
-  for (long long c0 = blockIdx.x * static_cast<long long>(kRows); c0 < slabs;
-       c0 += static_cast<long long>(gridDim.x) * kRows) {
-    const int rows = slabs - c0 < kRows ? static_cast<int>(slabs - c0) : kRows;
-    const uint8_t* const p = blocks + c0 * slab + threadIdx.x * 16;
-    uint4 x[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      if (i < rows) x[i] = *reinterpret_cast<const uint4*>(p + i * slab);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      if (i < rows) buf[i * stride + slot] = crc_raw16(tabs, 0u, x[i]);
-    __syncthreads();
-    crc_tree_nibbles(buf, rows, stride, levels, lvl);
-    for (int i = threadIdx.x; i < rows; i += blockDim.x) regs_out[c0 + i] = buf[i * stride];
-    buf = buf == regs ? regs + kRows * stride : regs;
-  }
-}
-
-// block_crc_kernel with the CRC tables in lane-private copies. A CTA of
-// blockDim.x threads loads blockDim.x * 16 contiguous bytes at a time:
-// G = blockDim.x / T slabs of T = 2^levels spans; thread t takes span t %
-// T of slab t / T. kSteps loads a step, so one tree folds kSteps * G
-// rows. The first 4 of crc_tabs' 8 tables are copied 32 times over, word
-// (s * 256 + i) * 32 + lane.
-template <int kSteps>
-__global__ void __launch_bounds__(1024) block_crc_lane_kernel(
-    const uint8_t* __restrict__ blocks, long long slabs, int levels,
-    const uint32_t* __restrict__ crc_tabs,
-    const uint32_t* __restrict__ level_tabs,
-    uint32_t* __restrict__ regs_out) {
-  extern __shared__ uint4 smem[];
-  uint32_t* const lanes = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* const lvl = lanes + kLaneTableWords;
-  uint32_t* const regs = lvl + levels * kShiftWords;
-  for (int e = threadIdx.x; e < kLaneTableWords; e += blockDim.x) lanes[e] = crc_tabs[e >> 5];
-  copy_table(lvl, level_tabs, levels * kShiftWords);
-  __syncthreads();
-  const uint32_t* const tab = lanes + (threadIdx.x & 31);
-  const int T = 1 << levels;
   const int G = blockDim.x >> levels;
-  const int stride = span_slot(T);
+  const int stride = span_slot(1 << levels);
   const int row = threadIdx.x >> levels;
-  const int slot = span_slot(threadIdx.x & (T - 1));
-  const long long per = static_cast<long long>(kSteps) * G;
-  const long long load = 16LL * blockDim.x;
+  const int slot = span_slot(threadIdx.x & ((1 << levels) - 1));
+  const long long per = static_cast<long long>(kSteps) * G;  // slabs a step
+  const long long load = 16LL * kVecs * blockDim.x;         // bytes a load
   uint32_t* buf = regs;
   for (long long c0 = blockIdx.x * per; c0 < slabs; c0 += gridDim.x * per) {
     const int rows = slabs - c0 < per ? static_cast<int>(slabs - c0) : static_cast<int>(per);
-    const uint8_t* const p = blocks + c0 * 16LL * T + threadIdx.x * 16;
-    uint4 x[kSteps];
+    const uint4* const p = reinterpret_cast<const uint4*>(
+        blocks + c0 * (load / G) + threadIdx.x * 16LL * kVecs);
+    uint4 x[kSteps][kVecs];
 #pragma unroll
     for (int i = 0; i < kSteps; ++i)
-      if (i * G + row < rows) x[i] = *reinterpret_cast<const uint4*>(p + i * load);
 #pragma unroll
-    for (int i = 0; i < kSteps; ++i)
-      if (i * G + row < rows) buf[(i * G + row) * stride + slot] = crc_lane16(tab, 0u, x[i]);
+      for (int v = 0; v < kVecs; ++v)
+        if (i * G + row < rows) x[i][v] = p[i * (load / 16) + v];
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      uint32_t crc = 0;
+#pragma unroll
+      for (int v = 0; v < kVecs; ++v) crc = crc_raw16(tabs, crc, x[i][v]);
+      if (i * G + row < rows) buf[(i * G + row) * stride + slot] = crc;
+    }
     __syncthreads();
     crc_tree_nibbles(buf, rows, stride, levels, lvl);
     for (int i = threadIdx.x; i < rows; i += blockDim.x) regs_out[c0 + i] = buf[i * stride];
@@ -430,11 +380,11 @@ __global__ void crc_fold_kernel(const uint32_t* __restrict__ regs,
 // ---------------------------------------------------------------------------
 
 // Kernel ids of lz_resident.
-enum KernelId : int { kFused = 0, kGfApplyVec = 1, kGfApplyByte = 2, kBlockCrc = 3, kBlockCrcLane = 4 };
+enum KernelId : int { kFused = 0, kGfApplyVec = 1, kGfApplyByte = 2, kBlockCrc = 3 };
 
-// Slabs block_crc_kernel takes a step (its template argument), by the
-// `rows` argument of the launcher.
-#define LZ_CRC_ROWS(X) X(4) X(8) X(12)
+// The (loads a step, 16-byte vectors a span) that block_crc_kernel is
+// built for, picked by the launcher's `steps` and `vecs` arguments.
+#define LZ_CRC_SHAPES(X) X(8, 1) X(4, 2) X(2, 4) X(1, 8)
 
 long long grid_for(long long units, int threads, long long cap) {
   long long g = (units + threads - 1) / threads;
@@ -457,17 +407,11 @@ size_t gf_smem_bytes(int w, int r) {
 }
 
 // Shared memory of block_crc_kernel: the CRC tables, the tree's shift
-// tables, then two buffers of `rows` rows of span registers.
-size_t crc_smem_bytes(int threads, int levels, int rows) {
-  return 4 * (kCrcTableWords + static_cast<size_t>(levels) * kShiftWords +
-              2 * static_cast<size_t>(rows) * span_slot(threads));
-}
-
-// Shared memory of block_crc_lane_kernel: the lane copies, the tree's
-// shift tables, two buffers of steps * threads / 2^levels rows.
-size_t crc_lane_smem_bytes(int threads, int levels, int steps) {
+// tables, then two buffers of steps * threads / 2^levels rows of 2^levels
+// span registers.
+size_t crc_smem_bytes(int threads, int levels, int steps) {
   const size_t rows = static_cast<size_t>(steps) * (threads >> levels);
-  return 4 * (kLaneTableWords + static_cast<size_t>(levels) * kShiftWords +
+  return 4 * (kCrcTableWords + static_cast<size_t>(levels) * kShiftWords +
               2 * rows * span_slot(1 << levels));
 }
 
@@ -515,8 +459,8 @@ extern "C" {
 // CTAs of one kernel (KernelId) that fit on the current device at once
 // for this shape (at least 1), or minus the CUDA error; also lets the
 // kernel take the device's opt-in shared memory. rows_in, rows_out: k and
-// m of the fused kernel, r and w of the GF apply, the slabs a step of the
-// block CRC. The wrappers ask once per shape and device and pass the
+// m of the fused kernel, r and w of the GF apply, the loads a step and
+// the vectors a span of the block CRC. The wrappers ask once per shape and device and pass the
 // count to every launch.
 int lz_resident(int kernel, int threads, int rows_in, int rows_out, int levels) {
   switch (kernel) {
@@ -528,20 +472,12 @@ int lz_resident(int kernel, int threads, int rows_in, int rows_out, int levels) 
     case kGfApplyByte:
       return resident_ctas(gf_apply_kernel<false>, threads, gf_smem_bytes(rows_out, rows_in));
     case kBlockCrc:
-#define LZ_CASE(R)                                                        \
-  if (rows_in == R)                                                       \
-    return resident_ctas(block_crc_kernel<R>, threads,                    \
+#define LZ_CASE(R, V)                                                     \
+  if (rows_in == R && rows_out == V)                                      \
+    return resident_ctas(block_crc_kernel<R, V>, threads,                 \
                          crc_smem_bytes(threads, levels, R));
-      LZ_CRC_ROWS(LZ_CASE)
+      LZ_CRC_SHAPES(LZ_CASE)
 #undef LZ_CASE
-      break;
-    case kBlockCrcLane:
-      if (rows_in == 4)
-        return resident_ctas(block_crc_lane_kernel<4>, threads,
-                             crc_lane_smem_bytes(threads, levels, 4));
-      if (rows_in == 8)
-        return resident_ctas(block_crc_lane_kernel<8>, threads,
-                             crc_lane_smem_bytes(threads, levels, 8));
       break;
   }
   return -static_cast<int>(cudaErrorInvalidValue);
@@ -566,60 +502,34 @@ int lz_gf_apply(const void* gf_tabs, const void* data, void* out, int w, int r,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[b] = crc32 of blocks[b, 0:bs]: block_crc_kernel over a grid of at
-// most `resident` CTAs of `threads` threads (bs = splits * 16 * threads),
-// `rows` slabs a step, into regs (nblocks * splits words), then the fold
-// with slab_tab = S^(16 * threads). One call launches both.
+// out[b] = crc32 of blocks[b, 0:bs]: block_crc_kernel<steps, vecs> over
+// a grid of at most `resident` CTAs of `threads` threads, with slabs of
+// 2^levels spans of vecs * 16 bytes (bs = splits * slab), into regs
+// (nblocks * splits words), then the fold with slab_tab = S^slab. One call
+// launches both.
 int lz_block_crcs(const void* blocks, long long nblocks, int threads, int splits,
-                  int rows, const void* crc_tabs, const void* level_tabs, int levels,
-                  const void* slab_tab, unsigned int k_const, int resident,
+                  int steps, int vecs, const void* crc_tabs, const void* level_tabs,
+                  int levels, const void* slab_tab, unsigned int k_const, int resident,
                   void* regs, void* out, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const long long slabs = nblocks * splits;
-  const long long steps = (slabs + rows - 1) / rows;
-  const long long grid = steps < resident ? steps : resident;
-  const size_t smem = crc_smem_bytes(threads, levels, rows);
-  auto* r = static_cast<uint32_t*>(regs);
-  bool launched = false;
-#define LZ_CASE(R)                                                              \
-  if (rows == R) {                                                              \
-    block_crc_kernel<R><<<static_cast<unsigned>(grid), threads, smem, s>>>(     \
-        static_cast<const uint8_t*>(blocks), slabs,                             \
-        static_cast<const uint32_t*>(crc_tabs),                                 \
-        static_cast<const uint32_t*>(level_tabs), levels, r);                   \
-    launched = true;                                                            \
-  }
-  LZ_CRC_ROWS(LZ_CASE)
-#undef LZ_CASE
-  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_fold(r, nblocks, splits, slab_tab, k_const, out,
-                                      nullptr, nullptr, s));
-}
-
-// lz_block_crcs with block_crc_lane_kernel<steps>: CTAs of `threads`
-// threads over slabs of 2^levels spans.
-int lz_block_crcs_lane(const void* blocks, long long nblocks, int threads, int splits,
-                       int steps, const void* crc_tabs, const void* level_tabs,
-                       int levels, const void* slab_tab, unsigned int k_const,
-                       int resident, void* regs, void* out, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const long long slabs = nblocks * splits;
   const long long per = static_cast<long long>(steps) * (threads >> levels);
   const long long n = (slabs + per - 1) / per;
   const long long grid = n < resident ? n : resident;
-  const size_t smem = crc_lane_smem_bytes(threads, levels, steps);
+  const size_t smem = crc_smem_bytes(threads, levels, steps);
   auto* r = static_cast<uint32_t*>(regs);
-  const auto* b = static_cast<const uint8_t*>(blocks);
-  const auto* ct = static_cast<const uint32_t*>(crc_tabs);
-  const auto* lt = static_cast<const uint32_t*>(level_tabs);
-  if (steps == 4)
-    block_crc_lane_kernel<4><<<static_cast<unsigned>(grid), threads, smem, s>>>(b, slabs, levels, ct, lt, r);
-  else if (steps == 8)
-    block_crc_lane_kernel<8><<<static_cast<unsigned>(grid), threads, smem, s>>>(b, slabs, levels, ct, lt, r);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  bool launched = false;
+#define LZ_CASE(R, V)                                                           \
+  if (steps == R && vecs == V) {                                                \
+    block_crc_kernel<R, V><<<static_cast<unsigned>(grid), threads, smem, s>>>(  \
+        static_cast<const uint8_t*>(blocks), slabs,                             \
+        static_cast<const uint32_t*>(crc_tabs),                                 \
+        static_cast<const uint32_t*>(level_tabs), levels, r);                   \
+    launched = true;                                                            \
+  }
+  LZ_CRC_SHAPES(LZ_CASE)
+#undef LZ_CASE
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_fold(r, nblocks, splits, slab_tab, k_const, out,

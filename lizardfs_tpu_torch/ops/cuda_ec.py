@@ -38,12 +38,11 @@ LAUNCHES = {
 
 _CRC_THREADS = 256  # CTA size of the CRC kernels (a power of two)
 _GF_THREADS = 256  # CTA size of the GF apply kernel
-_CRC_ROWS = 8  # slabs the block CRC kernel takes a step (4, 8 or 12)
+# (loads a step, 16-byte vectors a span) of the block CRC kernel
+_CRC_SHAPE = (8, 1)
 _VEC = 16  # bytes a thread loads per row and step
 # kernel ids of lz_resident (csrc/ec_kernels.cu: KernelId)
-_FUSED, _GF_APPLY_VEC, _GF_APPLY_BYTE, _BLOCK_CRC, _BLOCK_CRC_LANE = range(5)
-_CRC_LANE_STEPS = 0  # loads a step of the lane-table block CRC kernel; 0: the shared-table one
-_CRC_LANE_THREADS = 1024
+_FUSED, _GF_APPLY_VEC, _GF_APPLY_BYTE, _BLOCK_CRC = range(4)
 
 
 def reset_launches() -> None:
@@ -125,7 +124,8 @@ def _crc_table(device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=64)
 def _shift_nibble_table(nbytes: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """(len(nbytes), 8, 16) nibble tables of S^n for each n, on ``device``."""
-    return _words(np.stack([kernel_tables.shift_nibble_tables(n) for n in nbytes]), device)
+    tabs = [kernel_tables.shift_nibble_tables(n) for n in nbytes]
+    return _words(np.array(tabs, dtype=np.uint32).reshape(len(nbytes), 8, 16), device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -189,22 +189,18 @@ def encode(bigm: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _crc_threads(block_size: int) -> int:
-    # bs = 64 * 2^a, so bs // 16 is a power of two: every thread's span
-    # is a whole number of 16-byte vectors
-    return min(_CRC_THREADS, block_size // _VEC)
-
-
 @functools.lru_cache(maxsize=64)
-def _crc_plan(block_size: int, device: torch.device) -> tuple:
-    """What the CRC kernels and the fold take for block_size blocks on
-    ``device``, worked out once: (threads, splits, levels, CRC tables,
-    level shift tables, slab shift table, K)."""
-    threads = _crc_threads(block_size)
-    slab = threads * _VEC
-    levels = threads.bit_length() - 1
-    return (threads, block_size // slab, levels, _crc_table(device),
-            _shift_nibble_table(tuple(_VEC << l for l in range(levels)), device),
+def _crc_plan(block_size: int, span: int, device: torch.device) -> tuple:
+    """What the CRC kernels and the fold take for block_size blocks cut
+    into spans of ``span`` bytes on ``device``, worked out once: (spans a
+    slab, slabs a block, levels, CRC tables, level shift tables, slab
+    shift table, K). block_size = 64 * 2^a, so a slab is a whole number
+    of spans and a block a whole number of slabs."""
+    spans = min(_CRC_THREADS, block_size // span)
+    slab = spans * span
+    levels = spans.bit_length() - 1
+    return (spans, block_size // slab, levels, _crc_table(device),
+            _shift_nibble_table(tuple(span << l for l in range(levels)), device),
             _shift_nibble_table((slab,), device), crc32.zeros_crc(block_size))
 
 
@@ -222,22 +218,17 @@ def block_crcs(blocks: torch.Tensor, block_size: int = MFSBLOCKSIZE) -> torch.Te
     if nblocks == 0:
         return out
     _check_aligned(blocks, "blocks")
-    threads, splits, levels, crc_tab, level_tabs, slab_tab, k_const = _crc_plan(block_size, dev)
+    steps, vecs = _CRC_SHAPE
+    vecs = min(vecs, block_size // _VEC)
+    steps = steps * _CRC_SHAPE[1] // vecs
+    span = vecs * _VEC
+    _, splits, levels, crc_tab, level_tabs, slab_tab, k_const = _crc_plan(block_size, span, dev)
+    resident = _resident(_BLOCK_CRC, _CRC_THREADS, steps, vecs, levels, dev)
     regs = torch.empty(nblocks * splits, dtype=torch.int32, device=dev)
     lib = _build.library()
-    if _CRC_LANE_STEPS:
-        resident = _resident(_BLOCK_CRC_LANE, _CRC_LANE_THREADS, _CRC_LANE_STEPS, 0, levels, dev)
-        with torch.cuda.device(dev):
-            _launch("block_crc", lib.lz_block_crcs_lane, blocks.data_ptr(), nblocks,
-                    _CRC_LANE_THREADS, splits, _CRC_LANE_STEPS, crc_tab.data_ptr(),
-                    level_tabs.data_ptr(), levels, slab_tab.data_ptr(), k_const, resident,
-                    regs.data_ptr(), out.data_ptr(), _stream(blocks))
-        LAUNCHES["block_crcs"] += 1
-        return out
-    resident = _resident(_BLOCK_CRC, threads, _CRC_ROWS, 0, levels, dev)
     with torch.cuda.device(dev):
-        _launch("block_crc", lib.lz_block_crcs, blocks.data_ptr(), nblocks, threads, splits,
-                _CRC_ROWS, crc_tab.data_ptr(), level_tabs.data_ptr(), levels,
+        _launch("block_crc", lib.lz_block_crcs, blocks.data_ptr(), nblocks, _CRC_THREADS,
+                splits, steps, vecs, crc_tab.data_ptr(), level_tabs.data_ptr(), levels,
                 slab_tab.data_ptr(), k_const, resident, regs.data_ptr(), out.data_ptr(),
                 _stream(blocks))
     LAUNCHES["block_crcs"] += 1
@@ -262,7 +253,8 @@ def _fused_launch(bigm, data, block_size, expected=None):
     w, (r, n) = bigm.shape[0] // 8, data.shape
     nb = n // block_size
     dev = data.device
-    threads, splits, levels, crc_tab, level_tabs, slab_tab, k_const = _crc_plan(block_size, dev)
+    threads, splits, levels, crc_tab, level_tabs, slab_tab, k_const = (
+        _crc_plan(block_size, _VEC, dev))
     resident = _resident(_FUSED, threads, r, w, levels, dev)
     gf_tabs = _gf_tables_for(bigm)
     crc_inputs = expected is None

@@ -258,25 +258,33 @@ def test_emulated_gf_apply_byte_path_takes_ragged_n(name):
         _packed_apply(bigm, data, vec=False), np.asarray(jax_ec.apply_gf_bitmatrix(bigm, data)))
 
 
-def _block_crc_kernel(blocks, block_size, rows, grid=None):
-    """block_crc_kernel's walk, then the fold: slabs of 16 * T bytes tile
-    the blocks; CTA b of `grid` takes `rows` slabs a step at steps b, b +
-    grid, ... (fewer at the end), folds them in one nibble-table tree and
-    writes one register per slab; the fold then runs per block."""
-    threads = min(THREADS, block_size // VEC)
-    levels = threads.bit_length() - 1
-    slab = threads * VEC
+def _block_crc_kernel(blocks, block_size, steps, vecs, grid=None):
+    """block_crc_kernel's walk, then the fold: slabs of T spans of 16 *
+    vecs bytes tile the blocks; a load covers THREADS spans (THREADS / T
+    slabs) and a step `steps` loads; CTA b of `grid` takes steps b, b +
+    grid, ... (fewer slabs at the end), folds each step's slabs in one
+    nibble-table tree and writes one register per slab; the fold then
+    runs per block."""
+    span = VEC * vecs
+    spans = min(THREADS, block_size // span)
+    levels = spans.bit_length() - 1
+    slab = spans * span
+    per = steps * (THREADS // spans)
     flat = np.ascontiguousarray(blocks).reshape(-1)
     slabs = flat.size // slab
-    steps = -(-slabs // rows)
-    grid = steps if grid is None else min(grid, steps)
-    level_tabs = [kernel_tables.shift_nibble_tables(VEC << l) for l in range(levels)]
+    nsteps = -(-slabs // per)
+    grid = nsteps if grid is None else min(grid, nsteps)
+    level_tabs = [kernel_tables.shift_nibble_tables(span << l) for l in range(levels)]
     regs_out = np.zeros(slabs, dtype=np.uint32)
     written = np.zeros(slabs, dtype=int)
     for b in range(grid):
-        for c0 in range(b * rows, slabs, grid * rows):
-            n = min(rows, slabs - c0)
-            regs = _span_registers(flat[c0 * slab:(c0 + n) * slab].reshape(n, slab))
+        for c0 in range(b * per, slabs, grid * per):
+            n = min(per, slabs - c0)
+            vec_regs = _span_registers(flat[c0 * slab:(c0 + n) * slab].reshape(n * spans, span))
+            regs = np.zeros(n * spans, dtype=np.uint32)  # chained over a span's vectors
+            for v in range(vecs):
+                regs = _shift(kernel_tables.shift_nibble_tables(VEC), regs) ^ vec_regs[:, v]
+            regs = regs.reshape(n, spans)
             for tab in level_tabs:
                 regs = _shift(tab, regs[:, 0::2]) ^ regs[:, 1::2]
             regs_out[c0:c0 + n] = regs[:, 0]
@@ -301,7 +309,9 @@ def _block_crc_kernel(blocks, block_size, rows, grid=None):
 def test_emulated_block_crcs_match_pallas_and_golden(bs, count, grid, interpret_mode):
     blocks = np.random.default_rng(bs + count).integers(0, 256, (count, bs), dtype=np.uint8)
     want = ref_crc32.block_crcs_golden(blocks)
-    got = _block_crc_kernel(blocks, bs, cuda_ec._CRC_ROWS, grid)
+    steps, vecs = cuda_ec._CRC_SHAPE
+    vecs = min(vecs, bs // VEC)
+    got = _block_crc_kernel(blocks, bs, steps * cuda_ec._CRC_SHAPE[1] // vecs, vecs, grid)
     np.testing.assert_array_equal(got, want)
     if bs >= 128:  # the Pallas block_crcs takes 128-byte sub-blocks
         np.testing.assert_array_equal(np.asarray(pallas_ec.block_crcs(blocks, bs)), want)
