@@ -59,8 +59,8 @@ SASS = {  # kernel: pattern of its (mangled) name in cuobjdump's listing
     "gf_apply_kernel<false>": "gf_apply_kernelILb0E",
     "block_crc_kernel<8, 1>": "block_crc_kernelILi8ELi1E",
     "block_crc_kernel<4, 2>": "block_crc_kernelILi4ELi2E",
+    "block_crc_kernel<2, 2>": "block_crc_kernelILi2ELi2E",
     "block_crc_kernel<2, 4>": "block_crc_kernelILi2ELi4E",
-    "block_crc_kernel<1, 8>": "block_crc_kernelILi1ELi8E",
 }
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
@@ -407,7 +407,7 @@ def main() -> int:
         }))
     # block CRC shapes, in turns: (loads a step, 16-byte vectors a span)
     shipped = cuda_ec._CRC_SHAPE
-    variants = ((8, 1), (4, 2), (2, 4), (1, 8))
+    variants = ((8, 1), (4, 2), (2, 2), (2, 4))
     for shape in variants + variants[::-1]:
         cuda_ec._CRC_SHAPE = shape
         what = f"block CRC, shape {shape}"

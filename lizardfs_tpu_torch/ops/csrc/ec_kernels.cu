@@ -232,6 +232,22 @@ __global__ void __launch_bounds__(256) gf_apply_kernel(
   }
 }
 
+// x[i][v] = vector v of this thread's span in load i of the step at slab
+// c0 (block_crc_kernel's layout), for the loads that hold slabs.
+template <int kSteps, int kVecs>
+__device__ __forceinline__ void load_step(uint4 (&x)[kSteps][kVecs],
+                                          const uint8_t* __restrict__ blocks,
+                                          long long c0, long long slabs, int G,
+                                          int row, long long load) {
+  const uint4* const p = reinterpret_cast<const uint4*>(
+      blocks + c0 * (load / G) + threadIdx.x * 16LL * kVecs);
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i)
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v)
+      if (c0 + i * G + row < slabs) x[i][v] = p[i * (load / 16) + v];
+}
+
 // Raw CRC registers of the slabs that tile the blocks: a slab is T =
 // 2^levels spans of kVecs * 16 bytes, and regs_out[c] is the register of
 // bytes [c * slab, (c + 1) * slab). crc_tabs (8, 256) and level_tabs
@@ -240,8 +256,9 @@ __global__ void __launch_bounds__(256) gf_apply_kernel(
 // slabs (T <= blockDim.x): thread t takes span t % T of slab t / T, so
 // the CTA reads blockDim.x * kVecs * 16 contiguous bytes. A step takes
 // kSteps loads (fewer slabs at the end) and folds their kSteps * G rows in
-// one tree; two register buffers alternate between steps, so a step needs
-// no barrier after its registers are read out.
+// one tree; the next step's loads are issued before the tree. Two
+// register buffers alternate between steps, so a step needs no barrier
+// after its registers are read out.
 template <int kSteps, int kVecs>
 __global__ void __launch_bounds__(256) block_crc_kernel(
     const uint8_t* __restrict__ blocks, long long slabs,
@@ -254,25 +271,20 @@ __global__ void __launch_bounds__(256) block_crc_kernel(
   uint32_t* const regs = lvl + levels * kShiftWords;
   copy_table(sm, crc_tabs, kCrcTableWords);
   copy_table(lvl, level_tabs, levels * kShiftWords);
-  __syncthreads();
-  const uint32_t(*tabs)[256] = reinterpret_cast<const uint32_t(*)[256]>(sm);
   const int G = blockDim.x >> levels;
-  const int stride = span_slot(1 << levels);
   const int row = threadIdx.x >> levels;
-  const int slot = span_slot(threadIdx.x & ((1 << levels) - 1));
   const long long per = static_cast<long long>(kSteps) * G;  // slabs a step
   const long long load = 16LL * kVecs * blockDim.x;         // bytes a load
+  uint4 x[kSteps][kVecs];
+  long long c0 = blockIdx.x * per;
+  if (c0 < slabs) load_step(x, blocks, c0, slabs, G, row, load);
+  __syncthreads();
+  const uint32_t(*tabs)[256] = reinterpret_cast<const uint32_t(*)[256]>(sm);
+  const int stride = span_slot(1 << levels);
+  const int slot = span_slot(threadIdx.x & ((1 << levels) - 1));
   uint32_t* buf = regs;
-  for (long long c0 = blockIdx.x * per; c0 < slabs; c0 += gridDim.x * per) {
+  for (; c0 < slabs; c0 += gridDim.x * per) {
     const int rows = slabs - c0 < per ? static_cast<int>(slabs - c0) : static_cast<int>(per);
-    const uint4* const p = reinterpret_cast<const uint4*>(
-        blocks + c0 * (load / G) + threadIdx.x * 16LL * kVecs);
-    uint4 x[kSteps][kVecs];
-#pragma unroll
-    for (int i = 0; i < kSteps; ++i)
-#pragma unroll
-      for (int v = 0; v < kVecs; ++v)
-        if (i * G + row < rows) x[i][v] = p[i * (load / 16) + v];
 #pragma unroll
     for (int i = 0; i < kSteps; ++i) {
       uint32_t crc = 0;
@@ -280,6 +292,8 @@ __global__ void __launch_bounds__(256) block_crc_kernel(
       for (int v = 0; v < kVecs; ++v) crc = crc_raw16(tabs, crc, x[i][v]);
       if (i * G + row < rows) buf[(i * G + row) * stride + slot] = crc;
     }
+    if (c0 + gridDim.x * per < slabs)
+      load_step(x, blocks, c0 + gridDim.x * per, slabs, G, row, load);
     __syncthreads();
     crc_tree_nibbles(buf, rows, stride, levels, lvl);
     for (int i = threadIdx.x; i < rows; i += blockDim.x) regs_out[c0 + i] = buf[i * stride];
@@ -384,7 +398,7 @@ enum KernelId : int { kFused = 0, kGfApplyVec = 1, kGfApplyByte = 2, kBlockCrc =
 
 // The (loads a step, 16-byte vectors a span) that block_crc_kernel is
 // built for, picked by the launcher's `steps` and `vecs` arguments.
-#define LZ_CRC_SHAPES(X) X(8, 1) X(4, 2) X(2, 4) X(1, 8)
+#define LZ_CRC_SHAPES(X) X(8, 1) X(4, 2) X(2, 2) X(2, 4)
 
 long long grid_for(long long units, int threads, long long cap) {
   long long g = (units + threads - 1) / threads;

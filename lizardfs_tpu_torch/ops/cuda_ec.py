@@ -219,9 +219,7 @@ def block_crcs(blocks: torch.Tensor, block_size: int = MFSBLOCKSIZE) -> torch.Te
         return out
     _check_aligned(blocks, "blocks")
     steps, vecs = _CRC_SHAPE
-    vecs = min(vecs, block_size // _VEC)
-    steps = steps * _CRC_SHAPE[1] // vecs
-    span = vecs * _VEC
+    span = vecs * _VEC  # at most 64: every allowed block is whole spans
     _, splits, levels, crc_tab, level_tabs, slab_tab, k_const = _crc_plan(block_size, span, dev)
     resident = _resident(_BLOCK_CRC, _CRC_THREADS, steps, vecs, levels, dev)
     regs = torch.empty(nblocks * splits, dtype=torch.int32, device=dev)

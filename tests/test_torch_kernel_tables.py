@@ -309,9 +309,7 @@ def _block_crc_kernel(blocks, block_size, steps, vecs, grid=None):
 def test_emulated_block_crcs_match_pallas_and_golden(bs, count, grid, interpret_mode):
     blocks = np.random.default_rng(bs + count).integers(0, 256, (count, bs), dtype=np.uint8)
     want = ref_crc32.block_crcs_golden(blocks)
-    steps, vecs = cuda_ec._CRC_SHAPE
-    vecs = min(vecs, bs // VEC)
-    got = _block_crc_kernel(blocks, bs, steps * cuda_ec._CRC_SHAPE[1] // vecs, vecs, grid)
+    got = _block_crc_kernel(blocks, bs, *cuda_ec._CRC_SHAPE, grid)
     np.testing.assert_array_equal(got, want)
     if bs >= 128:  # the Pallas block_crcs takes 128-byte sub-blocks
         np.testing.assert_array_equal(np.asarray(pallas_ec.block_crcs(blocks, bs)), want)
