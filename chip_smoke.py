@@ -226,7 +226,7 @@ def main() -> int:
     # multiple of the slabs a step (7, 33, 10), one block, and more steps
     # than the resident grid takes at once
     steps, vecs = cuda_ec._CRC_SHAPE
-    spans, splits, levels, *_ = cuda_ec._crc_plan(4096, 16 * vecs, dev)
+    spans, splits, levels, *_ = cuda_ec._crc_plan(4096, 16 * vecs, cuda_ec._CRC_SPANS, dev)
     crc_grid = cuda_ec._resident(cuda_ec._BLOCK_CRC, cuda_ec._CRC_THREADS, steps, vecs,
                                  levels, dev) * steps * (cuda_ec._CRC_THREADS // spans)
     require(20011 * splits > crc_grid, f"20011 blocks exceed the {crc_grid} slabs a grid step")
@@ -405,22 +405,23 @@ def main() -> int:
             "kernel_iters": k_iters, "plain_iters": p_iters, "windows": WINDOWS,
             "card": card,
         }))
-    # block CRC shapes, in turns: (loads a step, 16-byte vectors a span)
-    shipped = cuda_ec._CRC_SHAPE
-    variants = ((8, 1), (4, 2), (2, 2), (2, 4))
-    for shape in variants + variants[::-1]:
-        cuda_ec._CRC_SHAPE = shape
-        what = f"block CRC, shape {shape}"
+    # block CRC shapes, in turns: (loads a step, 16-byte vectors a span,
+    # spans a slab)
+    shipped = cuda_ec._CRC_SHAPE, cuda_ec._CRC_SPANS
+    variants = (((4, 2), 256), ((4, 2), 128), ((4, 2), 64), ((2, 4), 64), ((8, 1), 64))
+    for shape, spans in variants + variants[::-1]:
+        cuda_ec._CRC_SHAPE, cuda_ec._CRC_SPANS = shape, spans
+        what = f"block CRC, shape {shape}, {spans} spans a slab"
         require(torch.equal(cuda_ec.block_crcs(blocks, BS), crcs), what)
         for bs, count in ((64, 7), (4096, 33), (8192, 5), (BS, 1)):
             b = rand_bytes(count, bs)
             same("block_crcs", cuda_ec.block_crcs(b, bs), torch_ec.block_crcs(b, bs),
                  f"{what}: bs={bs} x {count}", crc=True)
         r_ms, _ = time_ms(lambda: cuda_ec.block_crcs(blocks, BS))
-        print(json.dumps({"crc_shape": shape, "kernel_ms": r_ms,
+        print(json.dumps({"crc_shape": shape, "crc_spans": spans, "kernel_ms": r_ms,
                           "device_ms": device_ms(lambda: cuda_ec.block_crcs(blocks, BS)),
                           "card": card}))
-    cuda_ec._CRC_SHAPE = shipped
+    cuda_ec._CRC_SHAPE, cuda_ec._CRC_SPANS = shipped
     # the encoder seam end to end: numpy in, pinned staging, kernels,
     # numpy out (host clock around work that ends synchronised)
     def wall_ms(fn, reps=5):

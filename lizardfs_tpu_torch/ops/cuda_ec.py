@@ -39,7 +39,8 @@ LAUNCHES = {
 _CRC_THREADS = 256  # CTA size of the CRC kernels (a power of two)
 _GF_THREADS = 256  # CTA size of the GF apply kernel
 # (loads a step, 16-byte vectors a span) of the block CRC kernel
-_CRC_SHAPE = (8, 1)
+_CRC_SHAPE = (4, 2)
+_CRC_SPANS = 256  # spans a slab of the block CRC kernel (a power of two)
 _VEC = 16  # bytes a thread loads per row and step
 # kernel ids of lz_resident (csrc/ec_kernels.cu: KernelId)
 _FUSED, _GF_APPLY_VEC, _GF_APPLY_BYTE, _BLOCK_CRC = range(4)
@@ -190,13 +191,14 @@ def encode(bigm: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _crc_plan(block_size: int, span: int, device: torch.device) -> tuple:
+def _crc_plan(block_size: int, span: int, spans: int, device: torch.device) -> tuple:
     """What the CRC kernels and the fold take for block_size blocks cut
-    into spans of ``span`` bytes on ``device``, worked out once: (spans a
-    slab, slabs a block, levels, CRC tables, level shift tables, slab
-    shift table, K). block_size = 64 * 2^a, so a slab is a whole number
-    of spans and a block a whole number of slabs."""
-    spans = min(_CRC_THREADS, block_size // span)
+    into slabs of up to ``spans`` spans of ``span`` bytes on ``device``,
+    worked out once: (spans a slab, slabs a block, levels, CRC tables,
+    level shift tables, slab shift table, K). block_size = 64 * 2^a, so
+    a slab is a whole number of spans and a block a whole number of
+    slabs."""
+    spans = min(spans, block_size // span)
     slab = spans * span
     levels = spans.bit_length() - 1
     return (spans, block_size // slab, levels, _crc_table(device),
@@ -220,7 +222,8 @@ def block_crcs(blocks: torch.Tensor, block_size: int = MFSBLOCKSIZE) -> torch.Te
     _check_aligned(blocks, "blocks")
     steps, vecs = _CRC_SHAPE
     span = vecs * _VEC  # at most 64: every allowed block is whole spans
-    _, splits, levels, crc_tab, level_tabs, slab_tab, k_const = _crc_plan(block_size, span, dev)
+    _, splits, levels, crc_tab, level_tabs, slab_tab, k_const = (
+        _crc_plan(block_size, span, _CRC_SPANS, dev))
     resident = _resident(_BLOCK_CRC, _CRC_THREADS, steps, vecs, levels, dev)
     regs = torch.empty(nblocks * splits, dtype=torch.int32, device=dev)
     lib = _build.library()
@@ -252,7 +255,7 @@ def _fused_launch(bigm, data, block_size, expected=None):
     nb = n // block_size
     dev = data.device
     threads, splits, levels, crc_tab, level_tabs, slab_tab, k_const = (
-        _crc_plan(block_size, _VEC, dev))
+        _crc_plan(block_size, _VEC, _CRC_THREADS, dev))
     resident = _resident(_FUSED, threads, r, w, levels, dev)
     gf_tabs = _gf_tables_for(bigm)
     crc_inputs = expected is None

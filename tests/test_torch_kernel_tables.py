@@ -258,15 +258,15 @@ def test_emulated_gf_apply_byte_path_takes_ragged_n(name):
         _packed_apply(bigm, data, vec=False), np.asarray(jax_ec.apply_gf_bitmatrix(bigm, data)))
 
 
-def _block_crc_kernel(blocks, block_size, steps, vecs, grid=None):
-    """block_crc_kernel's walk, then the fold: slabs of T spans of 16 *
-    vecs bytes tile the blocks; a load covers THREADS spans (THREADS / T
+def _block_crc_kernel(blocks, block_size, steps, vecs, max_spans, grid=None):
+    """block_crc_kernel's walk, then the fold: slabs of T (at most
+    max_spans) spans of 16 * vecs bytes tile the blocks; a load covers THREADS spans (THREADS / T
     slabs) and a step `steps` loads; CTA b of `grid` takes steps b, b +
     grid, ... (fewer slabs at the end), folds each step's slabs in one
     nibble-table tree and writes one register per slab; the fold then
     runs per block."""
     span = VEC * vecs
-    spans = min(THREADS, block_size // span)
+    spans = min(max_spans, block_size // span)
     levels = spans.bit_length() - 1
     slab = spans * span
     per = steps * (THREADS // spans)
@@ -309,7 +309,7 @@ def _block_crc_kernel(blocks, block_size, steps, vecs, grid=None):
 def test_emulated_block_crcs_match_pallas_and_golden(bs, count, grid, interpret_mode):
     blocks = np.random.default_rng(bs + count).integers(0, 256, (count, bs), dtype=np.uint8)
     want = ref_crc32.block_crcs_golden(blocks)
-    got = _block_crc_kernel(blocks, bs, *cuda_ec._CRC_SHAPE, grid)
+    got = _block_crc_kernel(blocks, bs, *cuda_ec._CRC_SHAPE, cuda_ec._CRC_SPANS, grid)
     np.testing.assert_array_equal(got, want)
     if bs >= 128:  # the Pallas block_crcs takes 128-byte sub-blocks
         np.testing.assert_array_equal(np.asarray(pallas_ec.block_crcs(blocks, bs)), want)
