@@ -57,10 +57,9 @@ SASS = {  # kernel: pattern of its (mangled) name in cuobjdump's listing
     "crc_fold_kernel": "crc_fold_kernel",
     "gf_apply_kernel<true>": "gf_apply_kernelILb1E",
     "gf_apply_kernel<false>": "gf_apply_kernelILb0E",
-    "block_crc_kernel<8, 1>": "block_crc_kernelILi8ELi1E",
-    "block_crc_kernel<4, 2>": "block_crc_kernelILi4ELi2E",
-    "block_crc_kernel<2, 2>": "block_crc_kernelILi2ELi2E",
-    "block_crc_kernel<2, 4>": "block_crc_kernelILi2ELi4E",
+    "block_crc_kernel<4, 2, 0>": "block_crc_kernelILi4ELi2ELi0E",
+    "block_crc_kernel<4, 2, 1>": "block_crc_kernelILi4ELi2ELi1E",
+    "block_crc_kernel<4, 2, 2>": "block_crc_kernelILi4ELi2ELi2E",
 }
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
@@ -225,10 +224,11 @@ def main() -> int:
     # block CRCs: small blocks (4 threads a CTA), slab counts that are no
     # multiple of the slabs a step (7, 33, 10), one block, and more steps
     # than the resident grid takes at once
-    steps, vecs = cuda_ec._CRC_SHAPE
+    steps, vecs, _ = cuda_ec._CRC_SHAPE
     spans, splits, levels, *_ = cuda_ec._crc_plan(4096, 16 * vecs, cuda_ec._CRC_SPANS, dev)
-    crc_grid = cuda_ec._resident(cuda_ec._BLOCK_CRC, cuda_ec._CRC_THREADS, steps, vecs,
-                                 levels, dev) * steps * (cuda_ec._CRC_THREADS // spans)
+    crc_grid = cuda_ec._resident(cuda_ec._BLOCK_CRC, cuda_ec._CRC_THREADS, steps,
+                                 vecs + 16 * cuda_ec._CRC_SHAPE[2], levels,
+                                 dev) * steps * (cuda_ec._CRC_THREADS // spans)
     require(20011 * splits > crc_grid, f"20011 blocks exceed the {crc_grid} slabs a grid step")
     for bs, count in ((64, 7), (4096, 33), (8192, 5), (BS, 1), (4096, 20011)):
         b = rand_bytes(count, bs)
@@ -408,7 +408,7 @@ def main() -> int:
     # block CRC shapes, in turns: (loads a step, 16-byte vectors a span,
     # spans a slab)
     shipped = cuda_ec._CRC_SHAPE, cuda_ec._CRC_SPANS
-    variants = (((4, 2), 256), ((4, 2), 128), ((4, 2), 64), ((2, 4), 64), ((8, 1), 64))
+    variants = (((4, 2, 0), 128), ((4, 2, 1), 128), ((4, 2, 2), 128), ((4, 2, 0), 256))
     for shape, spans in variants + variants[::-1]:
         cuda_ec._CRC_SHAPE, cuda_ec._CRC_SPANS = shape, spans
         what = f"block CRC, shape {shape}, {spans} spans a slab"

@@ -88,6 +88,7 @@ namespace {
 constexpr int kCrcTableWords = 8 * 256;  // slicing-by-8 tables
 constexpr int kShiftWords = 8 * 16;      // one shift as 8 nibble tables
 constexpr int kGfRowWords = 32;          // 16 lo + 16 hi packed words
+constexpr int kSpanNibbleWords = 32 * 16;  // a 16-byte vector's nibble tables
 
 // ---------------------------------------------------------------------------
 // Device functions: host-built tables, packed GF lookups, raw CRC
@@ -108,6 +109,26 @@ __device__ __forceinline__ uint32_t crc_raw8(const uint32_t (*t)[256],
 __device__ __forceinline__ uint32_t crc_raw16(const uint32_t (*t)[256],
                                               uint32_t crc, const uint4 v) {
   return crc_raw8(t, crc_raw8(t, crc, v.x, v.y), v.z, v.w);
+}
+
+// Raw CRC register, from zero and shifted by the bytes that follow in its
+// span, of the 16 bytes of x: t[16 (2p + h) + n] is the register of a
+// span that is zero but for byte p = n << 4h. The 32 lookups are
+// independent, and the lanes that read one 16-word table hit 16 banks
+// with one word each, so they never conflict.
+__device__ __forceinline__ uint32_t span_nibbles(const uint32_t* t, const uint4 x) {
+  const uint32_t words[4] = {x.x, x.y, x.z, x.w};
+  uint32_t out = 0;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t b = words[w] >> (8 * p);
+      const int nib = 2 * (4 * w + p);
+      out ^= t[16 * nib + (b & 15u)] ^ t[16 * (nib + 1) + ((b >> 4) & 15u)];
+    }
+  }
+  return out;
 }
 
 // dst[0:words] = src[0:words] with 16-byte loads; words % 4 == 0 and both
@@ -259,18 +280,21 @@ __device__ __forceinline__ void load_step(uint4 (&x)[kSteps][kVecs],
 // one tree; the next step's loads are issued before the tree. Two
 // register buffers alternate between steps, so a step needs no barrier
 // after its registers are read out.
-template <int kSteps, int kVecs>
+template <int kSteps, int kVecs, int kNib>
 __global__ void __launch_bounds__(256) block_crc_kernel(
     const uint8_t* __restrict__ blocks, long long slabs,
     const uint32_t* __restrict__ crc_tabs,
     const uint32_t* __restrict__ level_tabs, int levels,
+    const uint32_t* __restrict__ nib_tabs,
     uint32_t* __restrict__ regs_out) {
   extern __shared__ uint4 smem[];
   uint32_t* const sm = reinterpret_cast<uint32_t*>(smem);
   uint32_t* const lvl = sm + kCrcTableWords;
-  uint32_t* const regs = lvl + levels * kShiftWords;
+  uint32_t* const nib = lvl + levels * kShiftWords;
+  uint32_t* const regs = nib + kNib * kSpanNibbleWords;
   copy_table(sm, crc_tabs, kCrcTableWords);
   copy_table(lvl, level_tabs, levels * kShiftWords);
+  copy_table(nib, nib_tabs, kNib * kSpanNibbleWords);
   const int G = blockDim.x >> levels;
   const int row = threadIdx.x >> levels;
   const long long per = static_cast<long long>(kSteps) * G;  // slabs a step
@@ -287,10 +311,15 @@ __global__ void __launch_bounds__(256) block_crc_kernel(
     const int rows = slabs - c0 < per ? static_cast<int>(slabs - c0) : static_cast<int>(per);
 #pragma unroll
     for (int i = 0; i < kSteps; ++i) {
-      uint32_t crc = 0;
+      uint32_t crc = 0, lead = 0;
 #pragma unroll
-      for (int v = 0; v < kVecs; ++v) crc = crc_raw16(tabs, crc, x[i][v]);
-      if (i * G + row < rows) buf[(i * G + row) * stride + slot] = crc;
+      for (int v = 0; v < kVecs; ++v) {
+        if (v < kNib)
+          lead ^= span_nibbles(nib + v * kSpanNibbleWords, x[i][v]);
+        else
+          crc = crc_raw16(tabs, crc, x[i][v]);
+      }
+      if (i * G + row < rows) buf[(i * G + row) * stride + slot] = crc ^ lead;
     }
     if (c0 + gridDim.x * per < slabs)
       load_step(x, blocks, c0 + gridDim.x * per, slabs, G, row, load);
@@ -398,7 +427,7 @@ enum KernelId : int { kFused = 0, kGfApplyVec = 1, kGfApplyByte = 2, kBlockCrc =
 
 // The (loads a step, 16-byte vectors a span) that block_crc_kernel is
 // built for, picked by the launcher's `steps` and `vecs` arguments.
-#define LZ_CRC_SHAPES(X) X(8, 1) X(4, 2) X(2, 2) X(2, 4)
+#define LZ_CRC_SHAPES(X) X(4, 2, 0) X(4, 2, 1) X(4, 2, 2)
 
 long long grid_for(long long units, int threads, long long cap) {
   long long g = (units + threads - 1) / threads;
@@ -423,9 +452,10 @@ size_t gf_smem_bytes(int w, int r) {
 // Shared memory of block_crc_kernel: the CRC tables, the tree's shift
 // tables, then two buffers of steps * threads / 2^levels rows of 2^levels
 // span registers.
-size_t crc_smem_bytes(int threads, int levels, int steps) {
+size_t crc_smem_bytes(int threads, int levels, int steps, int nib) {
   const size_t rows = static_cast<size_t>(steps) * (threads >> levels);
   return 4 * (kCrcTableWords + static_cast<size_t>(levels) * kShiftWords +
+              static_cast<size_t>(nib) * kSpanNibbleWords +
               2 * rows * span_slot(1 << levels));
 }
 
@@ -486,10 +516,10 @@ int lz_resident(int kernel, int threads, int rows_in, int rows_out, int levels) 
     case kGfApplyByte:
       return resident_ctas(gf_apply_kernel<false>, threads, gf_smem_bytes(rows_out, rows_in));
     case kBlockCrc:
-#define LZ_CASE(R, V)                                                     \
-  if (rows_in == R && rows_out == V)                                      \
-    return resident_ctas(block_crc_kernel<R, V>, threads,                 \
-                         crc_smem_bytes(threads, levels, R));
+#define LZ_CASE(R, V, N)                                                  \
+  if (rows_in == R && rows_out == V + 16 * N)                             \
+    return resident_ctas(block_crc_kernel<R, V, N>, threads,              \
+                         crc_smem_bytes(threads, levels, R, N));
       LZ_CRC_SHAPES(LZ_CASE)
 #undef LZ_CASE
       break;
@@ -522,24 +552,26 @@ int lz_gf_apply(const void* gf_tabs, const void* data, void* out, int w, int r,
 // (nblocks * splits words), then the fold with slab_tab = S^slab. One call
 // launches both.
 int lz_block_crcs(const void* blocks, long long nblocks, int threads, int splits,
-                  int steps, int vecs, const void* crc_tabs, const void* level_tabs,
-                  int levels, const void* slab_tab, unsigned int k_const, int resident,
+                  int steps, int vecs, int nib, const void* crc_tabs,
+                  const void* level_tabs, int levels, const void* nib_tabs,
+                  const void* slab_tab, unsigned int k_const, int resident,
                   void* regs, void* out, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const long long slabs = nblocks * splits;
   const long long per = static_cast<long long>(steps) * (threads >> levels);
   const long long n = (slabs + per - 1) / per;
   const long long grid = n < resident ? n : resident;
-  const size_t smem = crc_smem_bytes(threads, levels, steps);
+  const size_t smem = crc_smem_bytes(threads, levels, steps, nib);
   auto* r = static_cast<uint32_t*>(regs);
   bool launched = false;
-#define LZ_CASE(R, V)                                                           \
-  if (steps == R && vecs == V) {                                                \
-    block_crc_kernel<R, V><<<static_cast<unsigned>(grid), threads, smem, s>>>(  \
-        static_cast<const uint8_t*>(blocks), slabs,                             \
-        static_cast<const uint32_t*>(crc_tabs),                                 \
-        static_cast<const uint32_t*>(level_tabs), levels, r);                   \
-    launched = true;                                                            \
+#define LZ_CASE(R, V, N)                                                           \
+  if (steps == R && vecs == V && nib == N) {                                       \
+    block_crc_kernel<R, V, N><<<static_cast<unsigned>(grid), threads, smem, s>>>(  \
+        static_cast<const uint8_t*>(blocks), slabs,                                \
+        static_cast<const uint32_t*>(crc_tabs),                                    \
+        static_cast<const uint32_t*>(level_tabs), levels,                          \
+        static_cast<const uint32_t*>(nib_tabs), r);                                \
+    launched = true;                                                               \
   }
   LZ_CRC_SHAPES(LZ_CASE)
 #undef LZ_CASE
