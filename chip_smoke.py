@@ -57,9 +57,7 @@ SASS = {  # kernel: pattern of its (mangled) name in cuobjdump's listing
     "crc_fold_kernel": "crc_fold_kernel",
     "gf_apply_kernel<true>": "gf_apply_kernelILb1E",
     "gf_apply_kernel<false>": "gf_apply_kernelILb0E",
-    "block_crc_kernel<4, 2, 0>": "block_crc_kernelILi4ELi2ELi0E",
-    "block_crc_kernel<4, 2, 1>": "block_crc_kernelILi4ELi2ELi1E",
-    "block_crc_kernel<4, 2, 2>": "block_crc_kernelILi4ELi2ELi2E",
+    "block_crc_kernel": "block_crc_kernel",
 }
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
@@ -221,15 +219,15 @@ def main() -> int:
         g = torch.from_numpy(torch_ec.encoding_bitmatrix(k, m)).to(dev)
         x = rand_bytes(k, n)
         same("encode", cuda_ec.encode(g, x), torch_ec.apply_gf_bitmatrix(g, x), f"ec({k},{m}) N={n}")
-    # block CRCs: small blocks (4 threads a CTA), slab counts that are no
-    # multiple of the slabs a step (7, 33, 10), one block, and more steps
-    # than the resident grid takes at once
-    steps, vecs, _ = cuda_ec._CRC_SHAPE
-    spans, splits, levels, *_ = cuda_ec._crc_plan(4096, 16 * vecs, cuda_ec._CRC_SPANS, dev)
-    crc_grid = cuda_ec._resident(cuda_ec._BLOCK_CRC, cuda_ec._CRC_THREADS, steps,
-                                 vecs + 16 * cuda_ec._CRC_SHAPE[2], levels,
-                                 dev) * steps * (cuda_ec._CRC_THREADS // spans)
-    require(20011 * splits > crc_grid, f"20011 blocks exceed the {crc_grid} slabs a grid step")
+    # block CRCs: small blocks (two spans a block), slab counts that are no
+    # multiple of the slabs a step, one block, and more slabs than the
+    # resident grid takes in one step
+    spans, splits, levels, *_ = cuda_ec._crc_plan(4096, cuda_ec._CRC_VECS * 16,
+                                                  cuda_ec._CRC_SPANS, dev)
+    crc_grid = cuda_ec._resident(cuda_ec._BLOCK_CRC, cuda_ec._CRC_THREADS, cuda_ec._CRC_STEPS,
+                                 cuda_ec._CRC_VECS, levels, dev)
+    crc_grid *= cuda_ec._CRC_STEPS * (cuda_ec._CRC_THREADS // spans)  # slabs a grid step
+    require(20011 * splits > crc_grid, f"20011 blocks of 4 KiB exceed the {crc_grid} slabs a grid step")
     for bs, count in ((64, 7), (4096, 33), (8192, 5), (BS, 1), (4096, 20011)):
         b = rand_bytes(count, bs)
         same("block_crcs", cuda_ec.block_crcs(b, bs), torch_ec.block_crcs(b, bs),
@@ -405,23 +403,6 @@ def main() -> int:
             "kernel_iters": k_iters, "plain_iters": p_iters, "windows": WINDOWS,
             "card": card,
         }))
-    # block CRC shapes, in turns: (loads a step, 16-byte vectors a span,
-    # spans a slab)
-    shipped = cuda_ec._CRC_SHAPE, cuda_ec._CRC_SPANS
-    variants = (((4, 2, 0), 128), ((4, 2, 1), 128), ((4, 2, 2), 128), ((4, 2, 0), 256))
-    for shape, spans in variants + variants[::-1]:
-        cuda_ec._CRC_SHAPE, cuda_ec._CRC_SPANS = shape, spans
-        what = f"block CRC, shape {shape}, {spans} spans a slab"
-        require(torch.equal(cuda_ec.block_crcs(blocks, BS), crcs), what)
-        for bs, count in ((64, 7), (4096, 33), (8192, 5), (BS, 1)):
-            b = rand_bytes(count, bs)
-            same("block_crcs", cuda_ec.block_crcs(b, bs), torch_ec.block_crcs(b, bs),
-                 f"{what}: bs={bs} x {count}", crc=True)
-        r_ms, _ = time_ms(lambda: cuda_ec.block_crcs(blocks, BS))
-        print(json.dumps({"crc_shape": shape, "crc_spans": spans, "kernel_ms": r_ms,
-                          "device_ms": device_ms(lambda: cuda_ec.block_crcs(blocks, BS)),
-                          "card": card}))
-    cuda_ec._CRC_SHAPE, cuda_ec._CRC_SPANS = shipped
     # the encoder seam end to end: numpy in, pinned staging, kernels,
     # numpy out (host clock around work that ends synchronised)
     def wall_ms(fn, reps=5):

@@ -76,9 +76,9 @@ def library() -> ctypes.CDLL:
     ptr, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
     signatures = {
         "lz_resident": [i32, i32, i32, i32, i32],
-        "lz_gf_apply": [ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr],
-        "lz_block_crcs": [ptr, i64, i32, i32, i32, i32, i32, ptr, ptr, i32, ptr, ptr, u32, i32,
-                          ptr, ptr, ptr],
+        "lz_gf_apply": [ptr, ptr, ptr, i32, i32, i64, i32, i32, i32, ptr],
+        "lz_block_crcs": [ptr, i64, i32, i32, i32, i32, ptr, ptr, i32, ptr, u32, i32, ptr, ptr,
+                          ptr],
         "lz_fused_encode_crc": [
             ptr, ptr, i32, i32, i64, i32, i32, i32, ptr, ptr, i32, ptr, u32, i32,
             ptr, ptr, ptr, ptr, ptr, ptr,

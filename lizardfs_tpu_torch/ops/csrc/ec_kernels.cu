@@ -53,13 +53,18 @@
 //  block_crc_kernel         replaces `block_crcs` (:146-190, pallas_call
 //  + crc_fold_kernel         :166 plus the XLA log-tree fold). Bound by
 //    bytes: each block is read once. Design: the fused kernel's CRC half,
-//    over blocks instead of rows. A block is `splits` slabs of 16 bytes a
-//    thread; lane t takes bytes [16t, 16t + 16) of a slab (coalesced
-//    512-byte warp loads); a CTA loads kRows slabs at a time, so that one
-//    tree folds kRows rows per barrier, and writes one raw register per
-//    slab; crc_fold_kernel folds them per block. What bounds it is the
-//    slicing-by-8 lookups: their indices are random bytes, so a warp's 32
-//    lookups into a 256-word table hit about 3.5-way bank conflicts.
+//    over blocks instead of rows. A thread's span is kCrcVecs = 2
+//    vectors of 16 bytes, a slab 128 spans (4 KiB), and a CTA of 256
+//    threads loads 256 consecutive spans at a time (each warp load covers
+//    1 KiB, half of each 32-byte sector, the other half by the next
+//    load). A CTA takes kCrcSteps = 4 loads a step, issues the next
+//    step's loads before folding this step's slabs in one tree, and
+//    writes one raw register per slab; crc_fold_kernel folds them per
+//    block. What bounds it is shared memory and integer issue together:
+//    the slicing-by-8 lookups hit about 3.15-way bank conflicts (their
+//    indices are random bytes), and the ways that remove them (lane-
+//    private or nibble tables) cost more integer instructions than the
+//    conflicts (PERF.md).
 //
 //  fused_encode_crc_kernel  replaces `fused_encode_crc` (:438-581,
 //  + crc_fold_kernel         pallas_call :527, finalize :567-579) and,
@@ -74,10 +79,11 @@
 //    crc_fold_kernel then folds the slab registers of each (row, block),
 //    XORs K, and optionally compares with the stored CRCs.
 //
-// What bounds these designs on the H100 is integer issue, not bytes:
-// each lookup spends about three integer instructions on its nibble's or
-// byte's offset and its table's address (the `sass` lines of
-// chip_smoke.py; PERF.md).
+// What bounds the fused and block CRC designs on the H100 is integer
+// issue and shared memory, not bytes: each lookup spends about three
+// integer instructions on its nibble's or byte's offset and its table's
+// address (the `sass` lines of chip_smoke.py; PERF.md). The GF apply
+// alone moves its bytes at about two thirds of the memory rate.
 
 #include <cuda_runtime.h>
 
@@ -88,7 +94,8 @@ namespace {
 constexpr int kCrcTableWords = 8 * 256;  // slicing-by-8 tables
 constexpr int kShiftWords = 8 * 16;      // one shift as 8 nibble tables
 constexpr int kGfRowWords = 32;          // 16 lo + 16 hi packed words
-constexpr int kSpanNibbleWords = 32 * 16;  // a 16-byte vector's nibble tables
+constexpr int kCrcSteps = 4;  // loads a step of block_crc_kernel
+constexpr int kCrcVecs = 2;   // 16-byte vectors a span of block_crc_kernel
 
 // ---------------------------------------------------------------------------
 // Device functions: host-built tables, packed GF lookups, raw CRC
@@ -109,26 +116,6 @@ __device__ __forceinline__ uint32_t crc_raw8(const uint32_t (*t)[256],
 __device__ __forceinline__ uint32_t crc_raw16(const uint32_t (*t)[256],
                                               uint32_t crc, const uint4 v) {
   return crc_raw8(t, crc_raw8(t, crc, v.x, v.y), v.z, v.w);
-}
-
-// Raw CRC register, from zero and shifted by the bytes that follow in its
-// span, of the 16 bytes of x: t[16 (2p + h) + n] is the register of a
-// span that is zero but for byte p = n << 4h. The 32 lookups are
-// independent, and the lanes that read one 16-word table hit 16 banks
-// with one word each, so they never conflict.
-__device__ __forceinline__ uint32_t span_nibbles(const uint32_t* t, const uint4 x) {
-  const uint32_t words[4] = {x.x, x.y, x.z, x.w};
-  uint32_t out = 0;
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const uint32_t b = words[w] >> (8 * p);
-      const int nib = 2 * (4 * w + p);
-      out ^= t[16 * nib + (b & 15u)] ^ t[16 * (nib + 1) + ((b >> 4) & 15u)];
-    }
-  }
-  return out;
 }
 
 // dst[0:words] = src[0:words] with 16-byte loads; words % 4 == 0 and both
@@ -255,51 +242,46 @@ __global__ void __launch_bounds__(256) gf_apply_kernel(
 
 // x[i][v] = vector v of this thread's span in load i of the step at slab
 // c0 (block_crc_kernel's layout), for the loads that hold slabs.
-template <int kSteps, int kVecs>
-__device__ __forceinline__ void load_step(uint4 (&x)[kSteps][kVecs],
+__device__ __forceinline__ void load_step(uint4 (&x)[kCrcSteps][kCrcVecs],
                                           const uint8_t* __restrict__ blocks,
                                           long long c0, long long slabs, int G,
                                           int row, long long load) {
   const uint4* const p = reinterpret_cast<const uint4*>(
-      blocks + c0 * (load / G) + threadIdx.x * 16LL * kVecs);
+      blocks + c0 * (load / G) + threadIdx.x * 16LL * kCrcVecs);
 #pragma unroll
-  for (int i = 0; i < kSteps; ++i)
+  for (int i = 0; i < kCrcSteps; ++i)
 #pragma unroll
-    for (int v = 0; v < kVecs; ++v)
+    for (int v = 0; v < kCrcVecs; ++v)
       if (c0 + i * G + row < slabs) x[i][v] = p[i * (load / 16) + v];
 }
 
 // Raw CRC registers of the slabs that tile the blocks: a slab is T =
-// 2^levels spans of kVecs * 16 bytes, and regs_out[c] is the register of
-// bytes [c * slab, (c + 1) * slab). crc_tabs (8, 256) and level_tabs
+// 2^levels spans of kCrcVecs * 16 bytes, and regs_out[c] is the register
+// of bytes [c * slab, (c + 1) * slab). crc_tabs (8, 256) and level_tabs
 // (levels, 8, 16) are the host-built tables of kernel_tables.py; level l
 // shifts by 2^l spans. A load covers blockDim.x spans, G = blockDim.x / T
-// slabs (T <= blockDim.x): thread t takes span t % T of slab t / T, so
-// the CTA reads blockDim.x * kVecs * 16 contiguous bytes. A step takes
-// kSteps loads (fewer slabs at the end) and folds their kSteps * G rows in
-// one tree; the next step's loads are issued before the tree. Two
+// slabs (T <= blockDim.x): thread t takes span t % T of slab t / T, so the
+// CTA reads blockDim.x * kCrcVecs * 16 contiguous bytes. A step takes
+// kCrcSteps loads (fewer slabs at the end) and folds their kCrcSteps * G
+// rows in one tree; the next step's loads are issued before the tree. Two
 // register buffers alternate between steps, so a step needs no barrier
 // after its registers are read out.
-template <int kSteps, int kVecs, int kNib>
 __global__ void __launch_bounds__(256) block_crc_kernel(
     const uint8_t* __restrict__ blocks, long long slabs,
     const uint32_t* __restrict__ crc_tabs,
     const uint32_t* __restrict__ level_tabs, int levels,
-    const uint32_t* __restrict__ nib_tabs,
     uint32_t* __restrict__ regs_out) {
   extern __shared__ uint4 smem[];
   uint32_t* const sm = reinterpret_cast<uint32_t*>(smem);
   uint32_t* const lvl = sm + kCrcTableWords;
-  uint32_t* const nib = lvl + levels * kShiftWords;
-  uint32_t* const regs = nib + kNib * kSpanNibbleWords;
+  uint32_t* const regs = lvl + levels * kShiftWords;
   copy_table(sm, crc_tabs, kCrcTableWords);
   copy_table(lvl, level_tabs, levels * kShiftWords);
-  copy_table(nib, nib_tabs, kNib * kSpanNibbleWords);
   const int G = blockDim.x >> levels;
   const int row = threadIdx.x >> levels;
-  const long long per = static_cast<long long>(kSteps) * G;  // slabs a step
-  const long long load = 16LL * kVecs * blockDim.x;         // bytes a load
-  uint4 x[kSteps][kVecs];
+  const long long per = static_cast<long long>(kCrcSteps) * G;  // slabs a step
+  const long long load = 16LL * kCrcVecs * blockDim.x;         // bytes a load
+  uint4 x[kCrcSteps][kCrcVecs];
   long long c0 = blockIdx.x * per;
   if (c0 < slabs) load_step(x, blocks, c0, slabs, G, row, load);
   __syncthreads();
@@ -310,16 +292,11 @@ __global__ void __launch_bounds__(256) block_crc_kernel(
   for (; c0 < slabs; c0 += gridDim.x * per) {
     const int rows = slabs - c0 < per ? static_cast<int>(slabs - c0) : static_cast<int>(per);
 #pragma unroll
-    for (int i = 0; i < kSteps; ++i) {
-      uint32_t crc = 0, lead = 0;
+    for (int i = 0; i < kCrcSteps; ++i) {
+      uint32_t crc = 0;
 #pragma unroll
-      for (int v = 0; v < kVecs; ++v) {
-        if (v < kNib)
-          lead ^= span_nibbles(nib + v * kSpanNibbleWords, x[i][v]);
-        else
-          crc = crc_raw16(tabs, crc, x[i][v]);
-      }
-      if (i * G + row < rows) buf[(i * G + row) * stride + slot] = crc ^ lead;
+      for (int v = 0; v < kCrcVecs; ++v) crc = crc_raw16(tabs, crc, x[i][v]);
+      if (i * G + row < rows) buf[(i * G + row) * stride + slot] = crc;
     }
     if (c0 + gridDim.x * per < slabs)
       load_step(x, blocks, c0 + gridDim.x * per, slabs, G, row, load);
@@ -425,10 +402,6 @@ __global__ void crc_fold_kernel(const uint32_t* __restrict__ regs,
 // Kernel ids of lz_resident.
 enum KernelId : int { kFused = 0, kGfApplyVec = 1, kGfApplyByte = 2, kBlockCrc = 3 };
 
-// The (loads a step, 16-byte vectors a span) that block_crc_kernel is
-// built for, picked by the launcher's `steps` and `vecs` arguments.
-#define LZ_CRC_SHAPES(X) X(4, 2, 0) X(4, 2, 1) X(4, 2, 2)
-
 long long grid_for(long long units, int threads, long long cap) {
   long long g = (units + threads - 1) / threads;
   return g < 1 ? 1 : (g > cap ? cap : g);
@@ -450,12 +423,11 @@ size_t gf_smem_bytes(int w, int r) {
 }
 
 // Shared memory of block_crc_kernel: the CRC tables, the tree's shift
-// tables, then two buffers of steps * threads / 2^levels rows of 2^levels
-// span registers.
-size_t crc_smem_bytes(int threads, int levels, int steps, int nib) {
-  const size_t rows = static_cast<size_t>(steps) * (threads >> levels);
+// tables, then two buffers of kCrcSteps * threads / 2^levels rows of
+// 2^levels span registers.
+size_t crc_smem_bytes(int threads, int levels) {
+  const size_t rows = static_cast<size_t>(kCrcSteps) * (threads >> levels);
   return 4 * (kCrcTableWords + static_cast<size_t>(levels) * kShiftWords +
-              static_cast<size_t>(nib) * kSpanNibbleWords +
               2 * rows * span_slot(1 << levels));
 }
 
@@ -516,23 +488,18 @@ int lz_resident(int kernel, int threads, int rows_in, int rows_out, int levels) 
     case kGfApplyByte:
       return resident_ctas(gf_apply_kernel<false>, threads, gf_smem_bytes(rows_out, rows_in));
     case kBlockCrc:
-#define LZ_CASE(R, V, N)                                                  \
-  if (rows_in == R && rows_out == V + 16 * N)                             \
-    return resident_ctas(block_crc_kernel<R, V, N>, threads,              \
-                         crc_smem_bytes(threads, levels, R, N));
-      LZ_CRC_SHAPES(LZ_CASE)
-#undef LZ_CASE
+      if (rows_in == kCrcSteps && rows_out == kCrcVecs)
+        return resident_ctas(block_crc_kernel, threads, crc_smem_bytes(threads, levels));
       break;
   }
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // out (w, n) = the matrix of gf_tabs applied to data (r, n), over a grid
-// of at most `resident` CTAs (lz_resident). vec16: n % 16 == 0 and the
-// rows 16-byte aligned.
+// of at most `resident` CTAs (lz_resident) of `threads` threads. vec16:
+// n % 16 == 0 and the rows 16-byte aligned.
 int lz_gf_apply(const void* gf_tabs, const void* data, void* out, int w, int r,
-                long long n, int vec16, int resident, void* stream) {
-  const int threads = 256;
+                long long n, int vec16, int threads, int resident, void* stream) {
   const size_t smem = gf_smem_bytes(w, r);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* tabs = static_cast<const uint32_t*>(gf_tabs);
@@ -546,36 +513,25 @@ int lz_gf_apply(const void* gf_tabs, const void* data, void* out, int w, int r,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[b] = crc32 of blocks[b, 0:bs]: block_crc_kernel<steps, vecs> over
-// a grid of at most `resident` CTAs of `threads` threads, with slabs of
-// 2^levels spans of vecs * 16 bytes (bs = splits * slab), into regs
-// (nblocks * splits words), then the fold with slab_tab = S^slab. One call
-// launches both.
+// out[b] = crc32 of blocks[b, 0:bs]: block_crc_kernel over a grid of at
+// most `resident` CTAs of `threads` threads, with slabs of 2^levels spans
+// (bs = splits * slab), into regs (nblocks * splits words), then the fold
+// with slab_tab = S^slab. One call launches both. steps and vecs are the
+// caller's kCrcSteps and kCrcVecs, checked.
 int lz_block_crcs(const void* blocks, long long nblocks, int threads, int splits,
-                  int steps, int vecs, int nib, const void* crc_tabs,
-                  const void* level_tabs, int levels, const void* nib_tabs,
-                  const void* slab_tab, unsigned int k_const, int resident,
+                  int steps, int vecs, const void* crc_tabs, const void* level_tabs,
+                  int levels, const void* slab_tab, unsigned int k_const, int resident,
                   void* regs, void* out, void* stream) {
+  if (steps != kCrcSteps || vecs != kCrcVecs) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const long long slabs = nblocks * splits;
-  const long long per = static_cast<long long>(steps) * (threads >> levels);
+  const long long per = static_cast<long long>(kCrcSteps) * (threads >> levels);
   const long long n = (slabs + per - 1) / per;
   const long long grid = n < resident ? n : resident;
-  const size_t smem = crc_smem_bytes(threads, levels, steps, nib);
   auto* r = static_cast<uint32_t*>(regs);
-  bool launched = false;
-#define LZ_CASE(R, V, N)                                                           \
-  if (steps == R && vecs == V && nib == N) {                                       \
-    block_crc_kernel<R, V, N><<<static_cast<unsigned>(grid), threads, smem, s>>>(  \
-        static_cast<const uint8_t*>(blocks), slabs,                                \
-        static_cast<const uint32_t*>(crc_tabs),                                    \
-        static_cast<const uint32_t*>(level_tabs), levels,                          \
-        static_cast<const uint32_t*>(nib_tabs), r);                                \
-    launched = true;                                                               \
-  }
-  LZ_CRC_SHAPES(LZ_CASE)
-#undef LZ_CASE
-  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+  block_crc_kernel<<<static_cast<unsigned>(grid), threads, crc_smem_bytes(threads, levels), s>>>(
+      static_cast<const uint8_t*>(blocks), slabs, static_cast<const uint32_t*>(crc_tabs),
+      static_cast<const uint32_t*>(level_tabs), levels, r);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_fold(r, nblocks, splits, slab_tab, k_const, out,

@@ -38,10 +38,10 @@ LAUNCHES = {
 
 _CRC_THREADS = 256  # CTA size of the CRC kernels (a power of two)
 _GF_THREADS = 256  # CTA size of the GF apply kernel
-# (loads a step, 16-byte vectors a span, of which from nibble tables) of
-# the block CRC kernel
-_CRC_SHAPE = (4, 2, 0)
-_CRC_SPANS = 128  # spans a slab of the block CRC kernel (a power of two)
+# loads a step and 16-byte vectors a span of the block CRC kernel (its
+# kCrcSteps and kCrcVecs, which the launcher checks), and spans a slab
+_CRC_STEPS, _CRC_VECS = 4, 2
+_CRC_SPANS = 128
 _VEC = 16  # bytes a thread loads per row and step
 # kernel ids of lz_resident (csrc/ec_kernels.cu: KernelId)
 _FUSED, _GF_APPLY_VEC, _GF_APPLY_BYTE, _BLOCK_CRC = range(4)
@@ -126,14 +126,7 @@ def _crc_table(device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=64)
 def _shift_nibble_table(nbytes: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """(len(nbytes), 8, 16) nibble tables of S^n for each n, on ``device``."""
-    tabs = [kernel_tables.shift_nibble_tables(n) for n in nbytes]
-    return _words(np.array(tabs, dtype=np.uint32).reshape(len(nbytes), 8, 16), device)
-
-
-@functools.lru_cache(maxsize=16)
-def _span_nibble_table(nbytes: int, lead: int, device: torch.device) -> torch.Tensor:
-    """(2 * lead, 16) nibble tables of the leading bytes of an nbytes span."""
-    return _words(kernel_tables.span_nibble_tables(nbytes, lead).reshape(-1, 16), device)
+    return _words(np.stack([kernel_tables.shift_nibble_tables(n) for n in nbytes]), device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -192,7 +185,7 @@ def encode(bigm: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     with torch.cuda.device(data.device):
         _launch("gf_apply", lib.lz_gf_apply, gf_tabs.data_ptr(), data.data_ptr(),
-                out.data_ptr(), w, r, n, int(vec), resident, _stream(data))
+                out.data_ptr(), w, r, n, int(vec), _GF_THREADS, resident, _stream(data))
     LAUNCHES["encode"] += 1
     return out
 
@@ -227,19 +220,16 @@ def block_crcs(blocks: torch.Tensor, block_size: int = MFSBLOCKSIZE) -> torch.Te
     if nblocks == 0:
         return out
     _check_aligned(blocks, "blocks")
-    steps, vecs, nib = _CRC_SHAPE
-    span = vecs * _VEC  # at most 64: every allowed block is whole spans
     _, splits, levels, crc_tab, level_tabs, slab_tab, k_const = (
-        _crc_plan(block_size, span, _CRC_SPANS, dev))
-    nib_tabs = _span_nibble_table(span, nib * _VEC, dev)
-    resident = _resident(_BLOCK_CRC, _CRC_THREADS, steps, vecs + 16 * nib, levels, dev)
+        _crc_plan(block_size, _CRC_VECS * _VEC, _CRC_SPANS, dev))
+    resident = _resident(_BLOCK_CRC, _CRC_THREADS, _CRC_STEPS, _CRC_VECS, levels, dev)
     regs = torch.empty(nblocks * splits, dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         _launch("block_crc", lib.lz_block_crcs, blocks.data_ptr(), nblocks, _CRC_THREADS,
-                splits, steps, vecs, nib, crc_tab.data_ptr(), level_tabs.data_ptr(), levels,
-                nib_tabs.data_ptr(), slab_tab.data_ptr(), k_const, resident, regs.data_ptr(),
-                out.data_ptr(), _stream(blocks))
+                splits, _CRC_STEPS, _CRC_VECS, crc_tab.data_ptr(), level_tabs.data_ptr(),
+                levels, slab_tab.data_ptr(), k_const, resident, regs.data_ptr(), out.data_ptr(),
+                _stream(blocks))
     LAUNCHES["block_crcs"] += 1
     return out
 

@@ -14,8 +14,6 @@ shared memory with 16-byte loads; no CTA derives a table itself.
 * :func:`shift_nibble_tables`: S^n (the raw CRC register shifted by n
   zero bytes, :func:`crc32.shift_matrix`) as 8 tables of 16 words,
   ``N[q][x] = S^n (x << 4q)``, so that S^n v is the XOR of 8 lookups.
-* :func:`span_nibble_tables`: the raw CRC register of the leading bytes
-  of a span as one 16-word table per nibble.
 
 All tables are uint32 arrays; the wrapper hands them to the card as
 int32 tensors of the same bits.
@@ -95,29 +93,13 @@ def column_words(matrix: np.ndarray) -> np.ndarray:
     return cols.astype(np.uint32)
 
 
-def _nibble_tables(cols: np.ndarray) -> np.ndarray:
-    """A GF(2)-linear map given by its column words (column 4q + b is the
-    image of bit b of nibble q) -> (nibbles, 16) uint32 tables, ``[q, x]``
-    = the image of nibble q set to x: the XOR of the columns of its bits."""
-    cols = np.asarray(cols, dtype=np.uint32).reshape(-1, 4)
+@functools.lru_cache(maxsize=64)
+def shift_nibble_tables(nbytes: int) -> np.ndarray:
+    """(8, 16) uint32: ``[q, x]`` = S^nbytes applied to x << 4q, the XOR
+    of the column words of the bits set in x."""
+    cols = column_words(crc32.shift_matrix(nbytes)).reshape(NIBBLES, 4)
     select = ((np.arange(16)[:, None] >> np.arange(4)) & 1).astype(np.uint32)
     out = np.bitwise_xor.reduce(cols[:, None, :] * select[None, :, :], axis=-1)
     out = out.astype(np.uint32)
     out.setflags(write=False)
     return out
-
-
-@functools.lru_cache(maxsize=64)
-def shift_nibble_tables(nbytes: int) -> np.ndarray:
-    """(8, 16) uint32: ``[q, x]`` = S^nbytes applied to x << 4q."""
-    return _nibble_tables(column_words(crc32.shift_matrix(nbytes)))
-
-
-@functools.lru_cache(maxsize=8)
-def span_nibble_tables(nbytes: int, lead: int) -> np.ndarray:
-    """(2 * lead, 16) uint32: ``[2p + h, x]`` is the raw CRC register,
-    from zero, of nbytes bytes that are all zero but byte p = x << 4h, for
-    the first ``lead`` bytes p. The register of a span is the XOR of one
-    lookup per nibble of its first ``lead`` bytes and the register of the
-    rest."""
-    return _nibble_tables(column_words(crc32.subblock_matrix(nbytes))[: 8 * lead])

@@ -8,6 +8,7 @@ import torch
 from lizardfs_tpu.core.encoder import CpuChunkEncoder as RefCpuChunkEncoder
 from lizardfs_tpu_torch.core import encoder as port_encoder
 from lizardfs_tpu_torch.core.encoder import CpuChunkEncoder, CudaChunkEncoder, get_encoder
+from lizardfs_tpu_torch.ops import torch_ec
 
 ref = RefCpuChunkEncoder()
 
@@ -102,6 +103,18 @@ def test_xor_parity(enc):
     out = np.empty(777, np.uint8)
     enc.xor_parity_into(parts, out)
     np.testing.assert_array_equal(out, ref.xor_parity(parts))
+
+
+def test_matrix_is_uploaded_once(enc):
+    """One device copy per matrix, so that the kernels' packed tables
+    (kept per matrix tensor) are built once and the matrix read back
+    once."""
+    bigm = np.array(torch_ec.encoding_bitmatrix(8, 4))
+    first = enc._matrix(bigm)
+    assert enc._matrix(bigm.copy()) is first
+    other = enc._matrix(bigm[::-1])
+    assert other is not first
+    np.testing.assert_array_equal(other.numpy(), bigm[::-1])
 
 
 def test_cpu_encoder_matches_reference():

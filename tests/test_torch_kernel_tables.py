@@ -258,7 +258,7 @@ def test_emulated_gf_apply_byte_path_takes_ragged_n(name):
         _packed_apply(bigm, data, vec=False), np.asarray(jax_ec.apply_gf_bitmatrix(bigm, data)))
 
 
-def _block_crc_kernel(blocks, block_size, steps, vecs, nib, max_spans, grid=None):
+def _block_crc_kernel(blocks, block_size, steps, vecs, max_spans, grid=None):
     """block_crc_kernel's walk, then the fold: slabs of T (at most
     max_spans) spans of 16 * vecs bytes tile the blocks; a load covers THREADS spans (THREADS / T
     slabs) and a step `steps` loads; CTA b of `grid` takes steps b, b +
@@ -280,15 +280,10 @@ def _block_crc_kernel(blocks, block_size, steps, vecs, nib, max_spans, grid=None
     for b in range(grid):
         for c0 in range(b * per, slabs, grid * per):
             n = min(per, slabs - c0)
-            x = flat[c0 * slab:(c0 + n) * slab].reshape(n * spans, span)
-            vec_regs = _span_registers(x)
-            regs = np.zeros(n * spans, dtype=np.uint32)  # chained over the last vectors
-            for v in range(nib, vecs):
+            vec_regs = _span_registers(flat[c0 * slab:(c0 + n) * slab].reshape(n * spans, span))
+            regs = np.zeros(n * spans, dtype=np.uint32)  # chained over a span's vectors
+            for v in range(vecs):
                 regs = _shift(kernel_tables.shift_nibble_tables(VEC), regs) ^ vec_regs[:, v]
-            if nib:  # the first vectors from nibble tables
-                tabs = kernel_tables.span_nibble_tables(span, VEC * nib)
-                for p in range(VEC * nib):
-                    regs ^= tabs[2 * p][x[:, p] & 15] ^ tabs[2 * p + 1][x[:, p] >> 4]
             regs = regs.reshape(n, spans)
             for tab in level_tabs:
                 regs = _shift(tab, regs[:, 0::2]) ^ regs[:, 1::2]
@@ -314,7 +309,8 @@ def _block_crc_kernel(blocks, block_size, steps, vecs, nib, max_spans, grid=None
 def test_emulated_block_crcs_match_pallas_and_golden(bs, count, grid, interpret_mode):
     blocks = np.random.default_rng(bs + count).integers(0, 256, (count, bs), dtype=np.uint8)
     want = ref_crc32.block_crcs_golden(blocks)
-    got = _block_crc_kernel(blocks, bs, *cuda_ec._CRC_SHAPE, cuda_ec._CRC_SPANS, grid)
+    got = _block_crc_kernel(blocks, bs, cuda_ec._CRC_STEPS, cuda_ec._CRC_VECS, cuda_ec._CRC_SPANS,
+                            grid)
     np.testing.assert_array_equal(got, want)
     if bs >= 128:  # the Pallas block_crcs takes 128-byte sub-blocks
         np.testing.assert_array_equal(np.asarray(pallas_ec.block_crcs(blocks, bs)), want)
