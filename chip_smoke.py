@@ -18,11 +18,21 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    four parts lost and rebuilt, checksummed and verified, and the chunk
    reassembled byte-identically, with every kernel's launch counter
    read around that run;
-5. times each kernel and its plain version with CUDA events, and the
-   encoder's write and one-part rebuild end to end (numpy in and out),
-   and prints one JSON line per kernel and per path, the card, and a
-   ``{"kernels": [...]}`` line;
-6. ends with ``{"ok": true, "device": {...}}``.
+5. runs the multi-device path over a mesh of every visible card:
+   ``dryrun_multichip`` (ec(32,8) over a 64 MiB logical chunk of 64 KiB
+   blocks, encoded, one part killed and rebuilt, against the golden
+   codec), ``ShardedCudaChunkEncoder`` rebuilding one and then eight
+   parts of that chunk and a geometry its guard keeps on one card, and
+   the encoder registry's one object per name; the ``encode`` and
+   ``block_crcs`` counters and the mesh-recover counter are read around
+   it;
+6. times each kernel and its plain version with CUDA events, the CRC
+   kernels on rows off a 16-byte boundary, the encoder's write and
+   one-part rebuild end to end (numpy in and out) at ec(8,4), and the
+   ec(32,8) wide-stripe encode and rebuild on the mesh beside one card's
+   encoder, and prints one JSON line per kernel and per path, the card,
+   and a ``{"kernels": [...]}`` line;
+7. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero.
 """
@@ -53,12 +63,17 @@ WINDOW_MS = 50.0  # each timing window lasts at least this long
 WINDOWS = 5  # timings report the median window
 SOURCE = "lizardfs_tpu_torch/ops/csrc/ec_kernels.cu"
 SASS = {  # kernel: pattern of its (mangled) name in cuobjdump's listing
-    "fused_encode_crc_kernel": "fused_encode_crc_kernel",
+    "fused_encode_crc_kernel<true>": "fused_encode_crc_kernelILb1E",
+    "fused_encode_crc_kernel<false>": "fused_encode_crc_kernelILb0E",
     "crc_fold_kernel": "crc_fold_kernel",
     "gf_apply_kernel<true>": "gf_apply_kernelILb1E",
     "gf_apply_kernel<false>": "gf_apply_kernelILb0E",
-    "block_crc_kernel": "block_crc_kernel",
+    "block_crc_kernel<true>": "block_crc_kernelILb1E",
+    "block_crc_kernel<false>": "block_crc_kernelILb0E",
 }
+OFFSETS = (1, 4, 8, 15)  # byte offsets from a 16-byte boundary: each word select and shift
+WIDE_K, WIDE_M = 32, 8  # the wide stripe of the multi-device path
+WIDE_LOST = [0, 5, 9, 16, 31, 33, 36, 39]  # eight parts of ec(32,8), data and parity
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
     "block_crcs": "lizardfs_tpu/ops/pallas_ec.py:166",
@@ -112,8 +127,10 @@ def main() -> int:
         return 2
 
     from lizardfs_tpu_torch.core import geometry
-    from lizardfs_tpu_torch.core.encoder import CpuChunkEncoder, get_encoder
-    from lizardfs_tpu_torch.entry import entry
+    from lizardfs_tpu_torch.core.encoder import (
+        RECOVERS, CpuChunkEncoder, ShardedCudaChunkEncoder, get_encoder)
+    from lizardfs_tpu_torch.entry import dryrun_multichip, entry
+    from lizardfs_tpu_torch.parallel.sharded import make_mesh
     from lizardfs_tpu_torch.models import flagship
     from lizardfs_tpu_torch.ops import _build, crc32, cuda_ec, gf256, rs, torch_ec
     from lizardfs_tpu_torch.utils import striping
@@ -260,6 +277,35 @@ def main() -> int:
             same("fused_decode_verify", rec, full[lost], what)
             same("fused_decode_verify", rcrc, exp, f"{what} stored CRCs", crc=True)
             require(bool(ok.all()), f"{what}: every rebuilt block verifies")
+
+    # rows off a 16-byte boundary (views such as buf[1:].view(B, bs)):
+    # the CRC wrappers' shifted-load kernels and their aligned copy
+    def offset_view(rows, offset):
+        flat = torch.empty(rows.numel() + offset, dtype=torch.uint8, device=dev)
+        view = flat[offset:].view(rows.shape)
+        view.copy_(rows)
+        require(view.data_ptr() % 16 == offset % 16, f"a view {offset} bytes off a boundary")
+        return view
+
+    rec_m, surv, expected = decode_cases[4]
+    for path in ("shifted", "copy"):
+        cuda_ec.OFFSET_PATH = path
+        for offset in OFFSETS:
+            sizes = (blocks, data, surv) if offset == 1 else (blocks[:33], data[:, :4 * BS],
+                                                              surv[:, :4 * BS])
+            b, x, sv = (offset_view(t, offset) for t in sizes)
+            what = f"{path}, {offset} bytes off, {tuple(b.shape)}"
+            same("block_crcs", cuda_ec.block_crcs(b, BS), torch_ec.block_crcs(sizes[0], BS),
+                 what, crc=True)
+            got, want = cuda_ec.fused_encode_crc(bigm, x, BS), torch_ec.fused_encode_crc(bigm, sizes[1], BS)
+            for part, (u, v) in enumerate(zip(got, want)):
+                same("fused_encode_crc", u, v, f"{what} output {part}", crc=part > 0)
+            exp = expected[:, :sv.shape[1] // BS].contiguous()
+            got = cuda_ec.fused_decode_verify(rec_m, sv, exp, BS)
+            want = torch_ec.fused_decode_verify(rec_m, sizes[2], exp, BS)
+            for part, (u, v) in enumerate(zip(got, want)):
+                same("fused_decode_verify", u, v, f"{what} output {part}", crc=part == 1)
+            require(bool(got[2].all()), f"decode {what}: every block verifies")
     torch.cuda.synchronize()
     print("kernels match their plain versions and the golden path")
 
@@ -269,7 +315,7 @@ def main() -> int:
     st = geometry.ec_type(K, M)
     cuda_ec.reset_launches()
     t0 = time.perf_counter()
-    enc = get_encoder()  # "cuda" on cuda:0
+    enc = get_encoder()  # "cuda" on cuda:0 with one card, "sharded" with more
     parts = striping.split_chunk(chunk, st, enc)
     stripe = np.stack([parts[i] for i in range(K)])
     w_parity, w_dcrc, w_pcrc = enc.encode_with_checksums(K, M, stripe, BS)
@@ -308,7 +354,47 @@ def main() -> int:
     for name, count in launches.items():
         require(count >= 1, f"{name} launched on the main path")
 
-    # -- phase 4: timing -------------------------------------------------
+    # -- phase 4: the multi-device path over every visible card ----------
+    n_cards = torch.cuda.device_count()
+    cuda_ec.reset_launches()
+    for key in RECOVERS:
+        RECOVERS[key] = 0
+    t0 = time.perf_counter()
+    ran = dryrun_multichip(n_cards)  # ec(32,8), 64 KiB blocks, 64 MiB logical
+    wparts, kill, wmesh = ran["parts"], ran["kill"], ran["mesh"]
+    require((ran["k"], ran["m"], ran["block_size"], ran["k"] * ran["nb"] * ran["block_size"])
+            == (WIDE_K, WIDE_M, BS, CHUNK), "dryrun_multichip at the driver's shapes")
+    wide = ShardedCudaChunkEncoder(mesh=make_mesh())
+    golden_enc = CpuChunkEncoder()
+    for lost in ([kill], WIDE_LOST):
+        have = {i: wparts[i] for i in range(WIDE_K + WIDE_M) if i not in lost}
+        got, want = wide.recover(WIDE_K, WIDE_M, have, lost), golden_enc.recover(WIDE_K, WIDE_M, have, lost)
+        require(all((got[i] == want[i]).all() and (got[i] == wparts[i]).all() for i in lost),
+                f"sharded encoder rebuilt parts {lost} of the wide stripe")
+    require(RECOVERS == {"mesh": 2, "card": 0}, f"both wide rebuilds on the mesh: {RECOVERS}")
+    # the geometry the JAX package's guard sends to its mesh and its CRC
+    # refuses (ec(4,2), 384-byte parts): the port keeps it on one card
+    small = rng.integers(0, 256, (4, 384), dtype=np.uint8)
+    small = np.concatenate([small, np.stack(rs.encode(4, 2, list(small)))])
+    got = wide.recover(4, 2, {i: small[i] for i in range(1, 6)}, [0])
+    require(RECOVERS["card"] == 1 and (got[0] == small[0]).all(), "ec(4,2) 384-byte parts on one card")
+    # the registry keeps one encoder per name: a second split_chunk with
+    # no encoder reuses the first one's device matrix (no new tables)
+    registry = get_encoder()
+    striping.split_chunk(chunk, st)
+    tables = set(cuda_ec._MATRIX_TABLES)
+    striping.split_chunk(chunk, st)
+    require(get_encoder() is registry and set(cuda_ec._MATRIX_TABLES) == tables,
+            "get_encoder() returns one encoder; split_chunk reuses its matrix")
+    torch.cuda.synchronize()
+    multi = dict(cuda_ec.LAUNCHES)
+    print(f"multi-device path: {n_cards} card(s), mesh {wmesh.shape}, "
+          f"{time.perf_counter() - t0:.3f} s, launches {json.dumps(multi)}, "
+          f"recovers {json.dumps(RECOVERS)}")
+    for name in ("encode", "block_crcs"):
+        require(multi[name] >= 1, f"{name} launched on the multi-device path")
+
+    # -- phase 5: timing -------------------------------------------------
     def window_ms(fn, iters):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -421,6 +507,49 @@ def main() -> int:
         ("encoder_rebuild_1_part", lambda: enc.recover(K, M, survivors, [lost1])),
     ):
         print(json.dumps({"path": path, "median_ms": wall_ms(fn), "reps": 5, "card": card}))
+
+    # CRC kernels on rows off a 16-byte boundary, beside the aligned call
+    # (device time per call; the aligned rows are the kernel lines' inputs)
+    for path in ("shifted", "copy"):
+        cuda_ec.OFFSET_PATH = path
+        b1, x1 = offset_view(blocks, 1), offset_view(data, 1)
+        for name, aligned_fn, offset_fn in (
+            ("block_crcs", lambda: cuda_ec.block_crcs(blocks, BS),
+             lambda: cuda_ec.block_crcs(b1, BS)),
+            ("fused_encode_crc", lambda: cuda_ec.fused_encode_crc(bigm, data, BS),
+             lambda: cuda_ec.fused_encode_crc(bigm, x1, BS)),
+        ):
+            print(json.dumps({
+                "offset_case": name, "path": path, "offset": 1,
+                "device_ms": device_ms(offset_fn), "aligned_device_ms": device_ms(aligned_fn),
+                "kernel_ms": time_ms(offset_fn)[0], "aligned_kernel_ms": time_ms(aligned_fn)[0],
+                "card": card,
+            }))
+    cuda_ec.OFFSET_PATH = "shifted"
+
+    # the ec(32,8) wide stripe over a 64 MiB logical chunk: the mesh step
+    # and the sharded encoder beside one card's encoder, numpy in and out;
+    # resident_ms: the data already on the card, outputs left there
+    wdata = np.ascontiguousarray(wparts[:WIDE_K])
+    wstep = flagship.make_multichip_step(wmesh, WIDE_K, WIDE_M, BS)
+    wdata_dev = torch.from_numpy(wdata).to(dev)
+    wbigm = torch.from_numpy(torch_ec.encoding_bitmatrix(WIDE_K, WIDE_M)).to(dev)
+    one_card = get_encoder("cuda")
+    wsurv = {i: wparts[i] for i in range(WIDE_K + WIDE_M) if i != kill}
+    for path, fn, resident, devices in (
+        ("multichip_encode_ec32_8_64MiB", lambda: [a.gather() for a in wstep(wdata)],
+         lambda: wstep(wdata_dev), n_cards),
+        ("encoder_write_ec32_8_64MiB", lambda: one_card.encode_with_checksums(WIDE_K, WIDE_M, wdata, BS),
+         lambda: cuda_ec.fused_encode_crc(wbigm, wdata_dev, BS), 1),
+        ("multichip_rebuild_ec32_8_1_part", lambda: wide.recover(WIDE_K, WIDE_M, wsurv, [kill]),
+         None, n_cards),
+        ("encoder_rebuild_ec32_8_1_part", lambda: one_card.recover(WIDE_K, WIDE_M, wsurv, [kill]),
+         None, 1),
+    ):
+        print(json.dumps({
+            "path": path, "median_ms": wall_ms(fn), "resident_ms": resident and wall_ms(resident),
+            "reps": 5, "devices": devices, "card": card,
+        }))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

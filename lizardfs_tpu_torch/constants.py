@@ -33,3 +33,20 @@ EC_MAX_PARITY = 32
 # XOR goal bounds (src/common/slice_traits.h:99-100).
 XOR_MIN_LEVEL = 2
 XOR_MAX_LEVEL = 9
+
+# The four "off" spellings every boolean LZ_* switch honors, as in the JAX
+# package: LZ_X=off means off, never "a set string, so on".
+OFF_SPELLINGS = ("0", "off", "false", "no")
+
+
+def env_flag(name: str, default: bool = True) -> bool:
+    """The accessor for boolean ``LZ_*`` switches: unset returns
+    ``default``; any set value is on unless it is one of
+    :data:`OFF_SPELLINGS` (in any case). Read per call, so a switch can
+    be flipped while the process runs."""
+    import os
+
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.lower() not in OFF_SPELLINGS

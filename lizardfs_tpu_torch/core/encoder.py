@@ -8,6 +8,9 @@ Counterpart of the JAX package's ``core/encoder.py`` with two backends:
     ISA-L/galois_field codec; the correctness oracle.
   * ``CudaChunkEncoder`` — the CUDA kernels behind
     :mod:`lizardfs_tpu_torch.ops.cuda_ec`, with pinned host staging.
+  * ``ShardedCudaChunkEncoder`` — ``CudaChunkEncoder`` whose ``recover``
+    rides a mesh of cards (:mod:`lizardfs_tpu_torch.parallel.recovery`)
+    where the geometry divides it.
 
 Parts are equal-length 1-D uint8 numpy arrays; part indices are global:
 0..k-1 data, k..k+m-1 parity.
@@ -22,8 +25,14 @@ import torch
 
 from lizardfs_tpu_torch.constants import MFSBLOCKSIZE
 from lizardfs_tpu_torch.ops import crc32, cuda_ec, gf256, rs, torch_ec
+from lizardfs_tpu_torch.parallel import recovery, sharded
 
 _MATRIX_CACHE = 256  # device matrices an encoder keeps (oldest dropped first)
+_STEP_CACHE = 64  # mesh rebuild steps a sharded encoder keeps (then cleared)
+
+# Which path each ShardedCudaChunkEncoder.recover call took: "mesh" (the
+# sharded rebuild) or "card" (CudaChunkEncoder.recover on one card).
+RECOVERS = {"mesh": 0, "card": 0}
 
 
 class ChunkEncoder(abc.ABC):
@@ -215,12 +224,102 @@ class CudaChunkEncoder(ChunkEncoder):
         torch.from_numpy(out).copy_(torch_ec.xor_reduce(self._stage(parts)))
 
 
-def get_encoder(name: str | None = None) -> ChunkEncoder:
-    """Encoder by name: "cpu" (numpy golden) or "cuda" (the kernels on
-    ``cuda:0``). None means "cuda"; there is no ladder that lands on the
-    CPU."""
-    if name in (None, "cuda"):
-        return CudaChunkEncoder()
-    if name == "cpu":
-        return CpuChunkEncoder()
-    raise ValueError(f"unknown encoder backend {name!r}")
+def _crc_block(nbytes: int) -> bool:
+    """Whether the CRC functions take blocks of ``nbytes``: 64 x 2^a."""
+    sub = nbytes // torch_ec.CRC_SUBBLOCK
+    return nbytes > 0 and nbytes % torch_ec.CRC_SUBBLOCK == 0 and sub & (sub - 1) == 0
+
+
+class ShardedCudaChunkEncoder(CudaChunkEncoder):
+    """Mesh-sharded wide-stripe backend, the counterpart of the JAX
+    package's ``ShardedTpuChunkEncoder``: ``recover`` rides the mesh
+    (parallel/recovery.py) whenever the geometry divides it and runs
+    ``CudaChunkEncoder.recover`` on the mesh's first device otherwise;
+    every other method runs on that device. ``RECOVERS`` counts the two
+    paths. ``LZ_SHARDED_RECOVERY=0`` kills it: the constructor refuses,
+    and a live instance rebuilds on one card (read at call time).
+
+    With no mesh it needs two or more cards and builds :func:`make_mesh`
+    over all of them; an explicit mesh of any size is taken as it is.
+    """
+
+    name = "sharded"
+
+    def __init__(self, mesh=None):
+        if not recovery.enabled():
+            raise RuntimeError("sharded recovery disabled (LZ_SHARDED_RECOVERY=0)")
+        if mesh is None:
+            cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if cards < 2:
+                raise RuntimeError(f"mesh-sharded recovery needs >= 2 cards, have {cards}")
+            mesh = sharded.make_mesh()
+        super().__init__(mesh.devices.flat[0])
+        self._mesh = mesh
+        self._n_mesh = mesh.size
+        # rebuild steps (their per-device matrices and tables) by geometry
+        # and erasure pattern: a replicator's steady state is a handful
+        self._rec_steps: dict[tuple, object] = {}
+
+    def _mesh_recover_step(self, k, m, avail, wanted, block_size):
+        key = (k, m, avail, wanted, block_size)
+        step = self._rec_steps.get(key)
+        if step is None:
+            step = recovery.sharded_reconstruct_with_crcs(
+                self._mesh, k, m, list(avail), list(wanted), block_size)
+            if len(self._rec_steps) > _STEP_CACHE:
+                self._rec_steps.clear()
+            self._rec_steps[key] = step
+        return step
+
+    def recover(self, k, m, parts, wanted):
+        nbytes = next((len(p) for p in parts.values() if p is not None), 0)
+        # the mesh path needs: the kill switch open, k parts dividing the
+        # mesh, the bytes dividing it into blocks the CRC takes (64 x 2^a;
+        # the JAX package's guard asks only for a multiple of 64), and no
+        # elided (None) inputs
+        block = nbytes // self._n_mesh
+        if (
+            not recovery.enabled()
+            or k % self._n_mesh
+            or nbytes % self._n_mesh
+            or not _crc_block(block)
+            or any(p is None for p in parts.values())
+        ):
+            RECOVERS["card"] += 1
+            return super().recover(k, m, parts, wanted)
+        wanted = list(wanted)
+        step = self._mesh_recover_step(k, m, tuple(sorted(parts)), tuple(wanted), block)
+        rec, _crcs = step(np.stack([np.asarray(parts[i]) for i in step.used]))
+        out = rec.gather().reshape(len(wanted), -1)
+        RECOVERS["mesh"] += 1
+        return {w: out[i] for i, w in enumerate(wanted)}
+
+
+# One encoder per (name, device), as the JAX package keeps one per name:
+# an encoder's device matrices, and so the kernels' tables, outlive a call.
+_ENCODERS: dict[tuple, ChunkEncoder] = {}
+
+
+def get_encoder(name: str | None = None, device=None) -> ChunkEncoder:
+    """Encoder by name, one object per (name, device): "cpu" (numpy
+    golden), "cuda" (the kernels on ``device``, default ``cuda:0``) or
+    "sharded" (:class:`ShardedCudaChunkEncoder` over every card). None or
+    "auto" without a device tries "sharded" (two or more cards, switch
+    open) and then "cuda"; nothing lands on the CPU unless asked to."""
+    if name in (None, "auto"):
+        if device is None:
+            try:
+                return get_encoder("sharded")
+            except RuntimeError:
+                pass
+        name = "cuda"
+    if name not in ("cpu", "cuda", "sharded"):
+        raise ValueError(f"unknown encoder backend {name!r}")
+    key = (name, cuda_ec.resolve_device(device) if name == "cuda" else None)
+    if key not in _ENCODERS:
+        _ENCODERS[key] = (
+            CudaChunkEncoder(key[1]) if name == "cuda"
+            else CpuChunkEncoder() if name == "cpu"
+            else ShardedCudaChunkEncoder()
+        )
+    return _ENCODERS[key]

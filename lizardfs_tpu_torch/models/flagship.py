@@ -6,6 +6,10 @@
 * :func:`make_reconstruct_step` — rebuild of lost parts from k survivors
   with a CRC verify of the rebuilt blocks (BASELINE config 4), through
   the fused kernel driven by a recovery matrix.
+* :func:`make_multichip_step` and :func:`make_multichip_reconstruct_step`
+  — wide-stripe ec(32,8) encode and rebuild with the stripe axis split
+  over a mesh of devices and the outputs block-sharded (BASELINE config
+  5), through the GF apply and block CRC kernels on each device.
 
 Both take an explicit bit-plane matrix where the caller has one (for
 example the JAX package's, through :func:`lizardfs_tpu_torch.params.from_reference`).
@@ -18,6 +22,7 @@ import torch
 
 from lizardfs_tpu_torch.constants import MFSBLOCKSIZE
 from lizardfs_tpu_torch.ops import cuda_ec, gf256, torch_ec
+from lizardfs_tpu_torch.parallel import recovery, sharded
 
 
 def _matrix(bigm, dev: torch.device) -> torch.Tensor:
@@ -73,6 +78,24 @@ def make_reconstruct_step(
 
     step.used = used
     return step
+
+
+def make_multichip_step(
+    mesh, k: int = 32, m: int = 8, block_size: int = MFSBLOCKSIZE
+):
+    """Wide-stripe sharded encode+CRC step over ``mesh`` (see parallel.sharded)."""
+    return sharded.sharded_encode_with_crcs(mesh, k, m, block_size)
+
+
+def make_multichip_reconstruct_step(
+    mesh, k: int, m: int, available: list[int], wanted: list[int],
+    block_size: int = MFSBLOCKSIZE,
+):
+    """Mesh-sharded rebuild of ``wanted`` lost parts from survivors (see
+    parallel.recovery)."""
+    return recovery.sharded_reconstruct_with_crcs(
+        mesh, k, m, available, wanted, block_size
+    )
 
 
 def example_chunk(k: int, nbytes_per_part: int, seed: int = 0) -> np.ndarray:

@@ -134,3 +134,16 @@ def test_registry(monkeypatch):
         get_encoder()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_encoder.CudaChunkEncoder()
+
+
+def test_registry_keeps_one_encoder_per_name_and_device():
+    """get_encoder returns the same object for a (name, device) each time,
+    so an encoder's device matrices (and the kernels' tables) outlive a
+    call; different devices or names get different encoders."""
+    assert get_encoder("cpu") is get_encoder("cpu")
+    cuda_on_cpu = get_encoder("cuda", "cpu")
+    assert get_encoder("cuda", torch.device("cpu")) is cuda_on_cpu
+    assert isinstance(cuda_on_cpu, CudaChunkEncoder) and cuda_on_cpu.device.type == "cpu"
+    assert cuda_on_cpu is not get_encoder("cpu")
+    bigm = np.array(torch_ec.encoding_bitmatrix(8, 4))
+    assert get_encoder("cuda", "cpu")._matrix(bigm) is cuda_on_cpu._matrix(bigm.copy())

@@ -282,3 +282,47 @@ def test_recovery_bitmatrix_is_contiguous(lost):
     rec, _, ok = step(allparts[step.used], want)
     np.testing.assert_array_equal(rec.numpy(), allparts[lost])
     assert bool(ok.all())
+
+
+def _offset_rows(rows: np.ndarray, offset: int) -> torch.Tensor:
+    """``rows`` as a view ``buf[offset:].view(rows.shape)`` of a larger
+    buffer: a tensor that starts off a 16-byte boundary."""
+    buf = torch.zeros(rows.size + offset, dtype=torch.uint8)
+    view = buf[offset:].view(rows.shape)
+    view.copy_(torch.from_numpy(rows))
+    return view
+
+
+@pytest.mark.parametrize("offset", [1, 4, 15])
+def test_crc_wrappers_take_any_offset(offset):
+    """block_crcs and both fused wrappers on buf[offset:].view(B, bs)
+    give the golden CRCs and the JAX package's results."""
+    rng = np.random.default_rng(offset)
+    k, m, bs, nb = 4, 2, 4096, 3
+    blocks = rng.integers(0, 256, (5, bs), dtype=np.uint8)
+    view = _offset_rows(blocks, offset)
+    assert view.data_ptr() % 16 == offset % 16
+    want = ref_crc32.block_crcs_golden(blocks)
+    np.testing.assert_array_equal(_crcs(cuda_ec.block_crcs(view, bs)), want)
+    np.testing.assert_array_equal(np.asarray(jax_ec.block_crcs(blocks, bs)), want)
+
+    data = rng.integers(0, 256, (k, nb * bs), dtype=np.uint8)
+    bigm = _t(torch_ec.encoding_bitmatrix(k, m))
+    wp, wd, wc = (np.asarray(x) for x in jax_ec.fused_encode_crc(
+        jax_ec.encoding_bitmatrix(k, m), data, bs))
+    p, dc, pc = cuda_ec.fused_encode_crc(bigm, _offset_rows(data, offset), bs)
+    np.testing.assert_array_equal(p.numpy(), wp)
+    np.testing.assert_array_equal(_crcs(dc), wd)
+    np.testing.assert_array_equal(_crcs(pc), wc)
+
+    allparts = np.concatenate([data, wp])
+    lost = [0, 5]
+    have = [i for i in range(k + m) if i not in lost]
+    used, _ = gf256.recovery_selection(k, m, have, lost)
+    rec_m = _t(torch_ec.recovery_bitmatrix(k, m, tuple(have), tuple(lost)))
+    expected = torch_ec.crc_words_from_numpy(np.concatenate([wd, wc])[lost])
+    rec, crcs, ok = cuda_ec.fused_decode_verify(
+        rec_m, _offset_rows(allparts[used], offset), expected, bs)
+    np.testing.assert_array_equal(rec.numpy(), allparts[lost])
+    np.testing.assert_array_equal(_crcs(crcs), np.concatenate([wd, wc])[lost])
+    assert bool(ok.all())
