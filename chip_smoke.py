@@ -279,7 +279,7 @@ def main() -> int:
             require(bool(ok.all()), f"{what}: every rebuilt block verifies")
 
     # rows off a 16-byte boundary (views such as buf[1:].view(B, bs)):
-    # the CRC wrappers' shifted-load kernels and their aligned copy
+    # the CRC kernels' shifted-load instantiations
     def offset_view(rows, offset):
         flat = torch.empty(rows.numel() + offset, dtype=torch.uint8, device=dev)
         view = flat[offset:].view(rows.shape)
@@ -288,24 +288,22 @@ def main() -> int:
         return view
 
     rec_m, surv, expected = decode_cases[4]
-    for path in ("shifted", "copy"):
-        cuda_ec.OFFSET_PATH = path
-        for offset in OFFSETS:
-            sizes = (blocks, data, surv) if offset == 1 else (blocks[:33], data[:, :4 * BS],
-                                                              surv[:, :4 * BS])
-            b, x, sv = (offset_view(t, offset) for t in sizes)
-            what = f"{path}, {offset} bytes off, {tuple(b.shape)}"
-            same("block_crcs", cuda_ec.block_crcs(b, BS), torch_ec.block_crcs(sizes[0], BS),
-                 what, crc=True)
-            got, want = cuda_ec.fused_encode_crc(bigm, x, BS), torch_ec.fused_encode_crc(bigm, sizes[1], BS)
-            for part, (u, v) in enumerate(zip(got, want)):
-                same("fused_encode_crc", u, v, f"{what} output {part}", crc=part > 0)
-            exp = expected[:, :sv.shape[1] // BS].contiguous()
-            got = cuda_ec.fused_decode_verify(rec_m, sv, exp, BS)
-            want = torch_ec.fused_decode_verify(rec_m, sizes[2], exp, BS)
-            for part, (u, v) in enumerate(zip(got, want)):
-                same("fused_decode_verify", u, v, f"{what} output {part}", crc=part == 1)
-            require(bool(got[2].all()), f"decode {what}: every block verifies")
+    for offset in OFFSETS:
+        sizes = (blocks, data, surv) if offset == 1 else (blocks[:33], data[:, :4 * BS],
+                                                          surv[:, :4 * BS])
+        b, x, sv = (offset_view(t, offset) for t in sizes)
+        what = f"{offset} bytes off a boundary, {tuple(b.shape)}"
+        same("block_crcs", cuda_ec.block_crcs(b, BS), torch_ec.block_crcs(sizes[0], BS),
+             what, crc=True)
+        got, want = cuda_ec.fused_encode_crc(bigm, x, BS), torch_ec.fused_encode_crc(bigm, sizes[1], BS)
+        for part, (u, v) in enumerate(zip(got, want)):
+            same("fused_encode_crc", u, v, f"{what} output {part}", crc=part > 0)
+        exp = expected[:, :sv.shape[1] // BS].contiguous()
+        got = cuda_ec.fused_decode_verify(rec_m, sv, exp, BS)
+        want = torch_ec.fused_decode_verify(rec_m, sizes[2], exp, BS)
+        for part, (u, v) in enumerate(zip(got, want)):
+            same("fused_decode_verify", u, v, f"{what} output {part}", crc=part == 1)
+        require(bool(got[2].all()), f"decode {what}: every block verifies")
     torch.cuda.synchronize()
     print("kernels match their plain versions and the golden path")
 
@@ -510,22 +508,18 @@ def main() -> int:
 
     # CRC kernels on rows off a 16-byte boundary, beside the aligned call
     # (device time per call; the aligned rows are the kernel lines' inputs)
-    for path in ("shifted", "copy"):
-        cuda_ec.OFFSET_PATH = path
-        b1, x1 = offset_view(blocks, 1), offset_view(data, 1)
-        for name, aligned_fn, offset_fn in (
-            ("block_crcs", lambda: cuda_ec.block_crcs(blocks, BS),
-             lambda: cuda_ec.block_crcs(b1, BS)),
-            ("fused_encode_crc", lambda: cuda_ec.fused_encode_crc(bigm, data, BS),
-             lambda: cuda_ec.fused_encode_crc(bigm, x1, BS)),
-        ):
-            print(json.dumps({
-                "offset_case": name, "path": path, "offset": 1,
-                "device_ms": device_ms(offset_fn), "aligned_device_ms": device_ms(aligned_fn),
-                "kernel_ms": time_ms(offset_fn)[0], "aligned_kernel_ms": time_ms(aligned_fn)[0],
-                "card": card,
-            }))
-    cuda_ec.OFFSET_PATH = "shifted"
+    b1, x1 = offset_view(blocks, 1), offset_view(data, 1)
+    for name, aligned_fn, offset_fn in (
+        ("block_crcs", lambda: cuda_ec.block_crcs(blocks, BS), lambda: cuda_ec.block_crcs(b1, BS)),
+        ("fused_encode_crc", lambda: cuda_ec.fused_encode_crc(bigm, data, BS),
+         lambda: cuda_ec.fused_encode_crc(bigm, x1, BS)),
+    ):
+        print(json.dumps({
+            "offset_case": name, "offset": 1,
+            "device_ms": device_ms(offset_fn), "aligned_device_ms": device_ms(aligned_fn),
+            "kernel_ms": time_ms(offset_fn)[0], "aligned_kernel_ms": time_ms(aligned_fn)[0],
+            "card": card,
+        }))
 
     # the ec(32,8) wide stripe over a 64 MiB logical chunk: the mesh step
     # and the sharded encoder beside one card's encoder, numpy in and out;

@@ -289,7 +289,7 @@ class ShardedCudaChunkEncoder(CudaChunkEncoder):
             return super().recover(k, m, parts, wanted)
         wanted = list(wanted)
         step = self._mesh_recover_step(k, m, tuple(sorted(parts)), tuple(wanted), block)
-        rec, _crcs = step(np.stack([np.asarray(parts[i]) for i in step.used]))
+        rec, _crcs = step([np.asarray(parts[i]) for i in step.used])
         out = rec.gather().reshape(len(wanted), -1)
         RECOVERS["mesh"] += 1
         return {w: out[i] for i, w in enumerate(wanted)}

@@ -44,12 +44,9 @@ _CRC_STEPS, _CRC_VECS = 4, 2
 _CRC_SPANS = 128
 _VEC = 16  # bytes a thread loads per row and step
 # kernel ids of lz_resident (csrc/ec_kernels.cu: KernelId); the shifted
-# ones are the CRC kernels' instantiations for rows off a 16-byte boundary
+# ones are the CRC kernels' instantiations for rows that start off a
+# 16-byte boundary (two aligned loads joined a vector)
 _FUSED, _GF_APPLY_VEC, _GF_APPLY_BYTE, _BLOCK_CRC, _FUSED_SHIFTED, _BLOCK_CRC_SHIFTED = range(6)
-# How the CRC wrappers take a tensor that starts off a 16-byte boundary:
-# "shifted" launches the kernels' shifted-load instantiation, "copy" makes
-# one aligned copy and launches the aligned one.
-OFFSET_PATH = "shifted"
 
 
 def reset_launches() -> None:
@@ -99,14 +96,8 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _aligned(t: torch.Tensor) -> tuple[torch.Tensor, bool]:
-    """(the tensor a CRC kernel reads, whether it starts on a 16-byte
-    boundary), after the copy of :data:`OFFSET_PATH` "copy"."""
-    if t.data_ptr() % _VEC == 0:
-        return t, True
-    if OFFSET_PATH == "copy":
-        return t.clone(), True
-    return t, False
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % _VEC == 0
 
 
 def _gf_dims(bigm: torch.Tensor, parts: torch.Tensor) -> tuple[int, int]:
@@ -188,7 +179,7 @@ def encode(bigm: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     out = torch.empty((w, n), dtype=torch.uint8, device=data.device)
     if n == 0:
         return out
-    vec = n % _VEC == 0 and data.data_ptr() % _VEC == 0
+    vec = n % _VEC == 0 and _aligned(data)
     resident = _resident(_GF_APPLY_VEC if vec else _GF_APPLY_BYTE, _GF_THREADS, r, w, 0,
                          data.device)
     gf_tabs = _gf_tables_for(bigm)
@@ -229,7 +220,7 @@ def block_crcs(blocks: torch.Tensor, block_size: int = MFSBLOCKSIZE) -> torch.Te
     out = torch.empty(nblocks, dtype=torch.int32, device=dev)
     if nblocks == 0:
         return out
-    blocks, aligned = _aligned(blocks)
+    aligned = _aligned(blocks)
     _, splits, levels, crc_tab, level_tabs, slab_tab, k_const = (
         _crc_plan(block_size, _CRC_VECS * _VEC, _CRC_SPANS, dev))
     resident = _resident(_BLOCK_CRC if aligned else _BLOCK_CRC_SHIFTED, _CRC_THREADS,
@@ -259,7 +250,7 @@ def _fused_launch(bigm, data, block_size, expected=None):
     ``expected`` (the lost parts' stored CRCs) the input rows' CRCs are
     skipped and the fold compares; returns (out rows, crcs of all rows or
     of the outputs, ok)."""
-    data, aligned = _aligned(data)
+    aligned = _aligned(data)
     w, (r, n) = bigm.shape[0] // 8, data.shape
     nb = n // block_size
     dev = data.device

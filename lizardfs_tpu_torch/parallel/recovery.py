@@ -22,7 +22,7 @@ import numpy as np
 
 from lizardfs_tpu_torch.constants import env_flag
 from lizardfs_tpu_torch.ops import gf256, torch_ec
-from lizardfs_tpu_torch.parallel.sharded import MeshApply, stripe_block_grid
+from lizardfs_tpu_torch.parallel.sharded import MeshApply, dims, stripe_block_grid
 
 
 def enabled() -> bool:
@@ -40,7 +40,8 @@ def sharded_reconstruct_with_crcs(
     the live part indices (>= k of them), ``wanted`` the lost ones (up to
     m). Returns ``run(survivors)`` where ``survivors`` is (k,
     nb*block_size) holding the **used** parts (``run.used``, the
-    selection rule's choice, ascending) stacked in that order; outputs
+    selection rule's choice, ascending) stacked in that order (or a list
+    of those rows); outputs
     are ShardedArrays (recovered (w, nb, block_size) block-sharded, crcs
     (w, nb)), byte-identical to the single-device recover for any
     erasure pattern. nb and k must divide the mesh like the encode step.
@@ -55,16 +56,14 @@ def sharded_reconstruct_with_crcs(
     step = MeshApply(mesh, bigm, block_size, crc_inputs=False)
 
     def run(survivors):
-        if survivors.shape[0] != k:
-            raise ValueError(
-                f"need the {k} used parts stacked, got {survivors.shape[0]}"
-            )
-        nb = survivors.shape[1] // block_size
-        if survivors.shape[1] % block_size or nb % (n_stripe * n_block):
+        rows, nbytes = dims(survivors)
+        if rows != k:
+            raise ValueError(f"need the {k} used parts stacked, got {rows}")
+        nb = nbytes // block_size
+        if nbytes % block_size or nb % (n_stripe * n_block):
             raise ValueError(
                 f"part bytes must be nb*{block_size} with nb divisible "
-                f"by mesh extent {n_stripe * n_block}; got "
-                f"{survivors.shape[1]}"
+                f"by mesh extent {n_stripe * n_block}; got {nbytes}"
             )
         return tuple(step(survivors))
 
@@ -86,10 +85,7 @@ def sharded_reconstruct_verify(
     stored CRC (or no expectation was given).
     """
     run = sharded_reconstruct_with_crcs(mesh, k, m, available, wanted, block_size)
-    stacked = np.stack([
-        np.asarray(survivors_by_part[i], dtype=np.uint8) for i in run.used
-    ])
-    rec, rcrc = run(stacked)
+    rec, rcrc = run([np.asarray(survivors_by_part[i], dtype=np.uint8) for i in run.used])
     rec_np = rec.gather().reshape(len(wanted), -1)
     rcrc_np = rcrc.gather()
     ok = True

@@ -120,7 +120,7 @@ class ShardedArray:
     def gather(self) -> np.ndarray:
         out = np.empty(self.shape, np.uint32 if self.crc else np.uint8)
         for shard in self.shards:
-            host = shard.data.cpu().numpy()
+            host = _to_host(shard.data)
             out[shard.index] = host.view(np.uint32) if self.crc else host
         return out
 
@@ -137,10 +137,34 @@ def stripe_block_grid(mesh: Mesh) -> np.ndarray:
     return mesh.devices.reshape(n_stripe, n_block)
 
 
-def _as_bytes(x) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.uint8)))
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy, copied off a card through a pinned buffer."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
+
+
+def dims(parts) -> tuple[int, int]:
+    """(rows, bytes a row) of a (rows, N) array or tensor or a list of rows."""
+    return len(parts), len(parts[0])
+
+
+def _to_device(parts, rows: slice, cols: slice, dev: torch.device) -> torch.Tensor:
+    """``parts[rows, cols]`` as a contiguous uint8 tensor on ``dev``. A
+    tensor is sliced and moved; numpy rows are copied once into a pinned
+    buffer (on a card) that is uploaded without waiting."""
+    if isinstance(parts, torch.Tensor):
+        return parts[rows, cols].to(dev).contiguous()
+    selected = parts[rows]
+    pinned = dev.type == "cuda"
+    host = torch.empty((len(selected), cols.stop - cols.start), dtype=torch.uint8,
+                       pin_memory=pinned)
+    staged = host.numpy()
+    for i, row in enumerate(selected):
+        staged[i] = row[cols]
+    return host.to(dev, non_blocking=True) if pinned else host
 
 
 class MeshApply:
@@ -167,10 +191,11 @@ class MeshApply:
         }
 
     def __call__(self, parts):
+        """``parts``: the r input rows, a (r, N) array or tensor or a list
+        of r equal-length numpy rows."""
         n_stripe, n_block = self.grid.shape
         w, r_loc, bs = self.w, self.r_loc, self.block_size
-        parts = _as_bytes(parts)
-        nbytes = parts.shape[1]
+        nbytes = dims(parts)[1]
         nb = nbytes // bs
         n_loc = nbytes // n_block  # bytes of a device's block range
         nb_loc = nb // n_block
@@ -178,8 +203,8 @@ class MeshApply:
         local = {}
         partials = {}
         for (s, b), dev in np.ndenumerate(self.grid):
-            piece = parts[r_loc * s:r_loc * (s + 1), n_loc * b:n_loc * (b + 1)]
-            local[s, b] = piece.to(dev).contiguous()
+            local[s, b] = _to_device(parts, slice(r_loc * s, r_loc * (s + 1)),
+                                     slice(n_loc * b, n_loc * (b + 1)), dev)
             partials[s, b] = cuda_ec.encode(self.mats[s, b], local[s, b])
         out_shards, crc_shards = [], []
         for (t, b), owner in np.ndenumerate(self.grid):
@@ -207,8 +232,9 @@ class MeshApply:
 def sharded_encode_with_crcs(mesh: Mesh, k: int, m: int, block_size: int):
     """Build a wide-stripe encode+CRC step over ``mesh``.
 
-    Returns ``run(data)`` where data is (k, nb*block_size) uint8 (numpy or
-    a tensor on any device); outputs are ShardedArrays (parity (m, nb,
+    Returns ``run(data)`` where data is (k, nb*block_size) uint8 (numpy,
+    a list of k numpy rows, or a tensor on any device); outputs are
+    ShardedArrays (parity (m, nb,
     block_size) block-sharded, data_crcs (k, nb), parity_crcs (m, nb)).
     nb and k must be divisible by the mesh size.
     """
@@ -219,15 +245,16 @@ def sharded_encode_with_crcs(mesh: Mesh, k: int, m: int, block_size: int):
     step = MeshApply(mesh, torch_ec.encoding_bitmatrix(k, m), block_size, crc_inputs=True)
 
     def run(data):
-        nb = data.shape[1] // block_size
-        if data.shape[1] % block_size or nb % (n_stripe * n_block):
+        rows, nbytes = dims(data)
+        nb = nbytes // block_size
+        if nbytes % block_size or nb % (n_stripe * n_block):
             raise ValueError(
                 f"data bytes per part must be nb*{block_size} with nb "
                 f"divisible by mesh extent {n_stripe * n_block}; got "
-                f"{data.shape[1]}"
+                f"{nbytes}"
             )
-        if data.shape[0] != k:
-            raise ValueError(f"need the {k} data parts stacked, got {data.shape[0]}")
+        if rows != k:
+            raise ValueError(f"need the {k} data parts stacked, got {rows}")
         parity, pcrc, dcrc = step(data)
         return parity, dcrc, pcrc
 

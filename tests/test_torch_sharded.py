@@ -92,14 +92,16 @@ def test_sharded_encode_matches_jax(k, m, mesh_shape):
     np.testing.assert_array_equal(got[2].gather(), golden[2])
 
 
-def test_sharded_encode_takes_a_tensor():
+def test_sharded_encode_takes_rows_tensors_and_arrays():
     import torch
 
     k, m = 8, 4
     data = _data(9, k, 8)
     run = flagship.make_multichip_step(_port_mesh(2, 2), k, m, BS)
-    for a, b in zip(run(torch.from_numpy(data)), run(data)):
-        np.testing.assert_array_equal(a.gather(), b.gather())
+    want = [a.gather() for a in run(data)]
+    for given in (torch.from_numpy(data), list(data)):
+        for a, b in zip(run(given), want):
+            np.testing.assert_array_equal(a.gather(), b)
 
 
 @pytest.mark.parametrize("k,m,seed,mesh_shape", [
