@@ -127,10 +127,8 @@ def main() -> int:
         return 2
 
     from lizardfs_tpu_torch.core import geometry
-    from lizardfs_tpu_torch.core.encoder import (
-        RECOVERS, CpuChunkEncoder, ShardedCudaChunkEncoder, get_encoder)
-    from lizardfs_tpu_torch.entry import dryrun_multichip, entry
-    from lizardfs_tpu_torch.parallel.sharded import make_mesh
+    from lizardfs_tpu_torch.core.encoder import CpuChunkEncoder, get_encoder
+    from lizardfs_tpu_torch.entry import entry
     from lizardfs_tpu_torch.models import flagship
     from lizardfs_tpu_torch.ops import _build, crc32, cuda_ec, gf256, rs, torch_ec
     from lizardfs_tpu_torch.utils import striping
@@ -353,44 +351,7 @@ def main() -> int:
         require(count >= 1, f"{name} launched on the main path")
 
     # -- phase 4: the multi-device path over every visible card ----------
-    n_cards = torch.cuda.device_count()
-    cuda_ec.reset_launches()
-    for key in RECOVERS:
-        RECOVERS[key] = 0
-    t0 = time.perf_counter()
-    ran = dryrun_multichip(n_cards)  # ec(32,8), 64 KiB blocks, 64 MiB logical
-    wparts, kill, wmesh = ran["parts"], ran["kill"], ran["mesh"]
-    require((ran["k"], ran["m"], ran["block_size"], ran["k"] * ran["nb"] * ran["block_size"])
-            == (WIDE_K, WIDE_M, BS, CHUNK), "dryrun_multichip at the driver's shapes")
-    wide = ShardedCudaChunkEncoder(mesh=make_mesh())
-    golden_enc = CpuChunkEncoder()
-    for lost in ([kill], WIDE_LOST):
-        have = {i: wparts[i] for i in range(WIDE_K + WIDE_M) if i not in lost}
-        got, want = wide.recover(WIDE_K, WIDE_M, have, lost), golden_enc.recover(WIDE_K, WIDE_M, have, lost)
-        require(all((got[i] == want[i]).all() and (got[i] == wparts[i]).all() for i in lost),
-                f"sharded encoder rebuilt parts {lost} of the wide stripe")
-    require(RECOVERS == {"mesh": 2, "card": 0}, f"both wide rebuilds on the mesh: {RECOVERS}")
-    # the geometry the JAX package's guard sends to its mesh and its CRC
-    # refuses (ec(4,2), 384-byte parts): the port keeps it on one card
-    small = rng.integers(0, 256, (4, 384), dtype=np.uint8)
-    small = np.concatenate([small, np.stack(rs.encode(4, 2, list(small)))])
-    got = wide.recover(4, 2, {i: small[i] for i in range(1, 6)}, [0])
-    require(RECOVERS["card"] == 1 and (got[0] == small[0]).all(), "ec(4,2) 384-byte parts on one card")
-    # the registry keeps one encoder per name: a second split_chunk with
-    # no encoder reuses the first one's device matrix (no new tables)
-    registry = get_encoder()
-    striping.split_chunk(chunk, st)
-    tables = set(cuda_ec._MATRIX_TABLES)
-    striping.split_chunk(chunk, st)
-    require(get_encoder() is registry and set(cuda_ec._MATRIX_TABLES) == tables,
-            "get_encoder() returns one encoder; split_chunk reuses its matrix")
-    torch.cuda.synchronize()
-    multi = dict(cuda_ec.LAUNCHES)
-    print(f"multi-device path: {n_cards} card(s), mesh {wmesh.shape}, "
-          f"{time.perf_counter() - t0:.3f} s, launches {json.dumps(multi)}, "
-          f"recovers {json.dumps(RECOVERS)}")
-    for name in ("encode", "block_crcs"):
-        require(multi[name] >= 1, f"{name} launched on the multi-device path")
+    wide = multi_device_path(chunk, st)
 
     # -- phase 5: timing -------------------------------------------------
     def window_ms(fn, iters):
@@ -488,17 +449,7 @@ def main() -> int:
             "card": card,
         }))
     # the encoder seam end to end: numpy in, pinned staging, kernels,
-    # numpy out (host clock around work that ends synchronised)
-    def wall_ms(fn, reps=5):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return sorted(times)[reps // 2]
-
+    # numpy out
     survivors = {i: parts[i] for i in range(K + M) if i != lost1}
     for path, fn in (
         ("encoder_write_64MiB", lambda: enc.encode_with_checksums(K, M, stripe, BS)),
@@ -521,11 +472,117 @@ def main() -> int:
             "card": card,
         }))
 
-    # the ec(32,8) wide stripe over a 64 MiB logical chunk: the mesh step
-    # and the sharded encoder beside one card's encoder, numpy in and out;
-    # resident_ms: the data already on the card, outputs left there
+    time_multi_device(wide, card)
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print_ok()
+    return 0
+
+
+def print_ok() -> None:
+    import torch
+
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+def sync_all() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def wall_ms(fn, reps=5) -> float:
+    """Median host time of ``reps`` calls that each end with every card
+    synchronised."""
+    times = []
+    for _ in range(reps):
+        sync_all()
+        t = time.perf_counter()
+        fn()
+        sync_all()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def multi_device_path(chunk: np.ndarray, st) -> dict:
+    """The multi-device path over a mesh of every visible card, with the
+    ``encode`` and ``block_crcs`` launch counters and the sharded
+    encoder's recover counters set to 0 before it and read after it:
+    ``dryrun_multichip`` at the driver's shapes, ``ShardedCudaChunkEncoder``
+    rebuilding one and then eight parts of that chunk (against the golden
+    codec) and a geometry its guard keeps on one card, and the registry's
+    one encoder per name (through ``split_chunk`` of ``chunk`` at ``st``).
+    Returns what the timing of the wide stripe needs."""
+    import torch
+
+    from lizardfs_tpu_torch.core.encoder import (
+        RECOVERS, CpuChunkEncoder, ShardedCudaChunkEncoder, get_encoder)
+    from lizardfs_tpu_torch.entry import dryrun_multichip
+    from lizardfs_tpu_torch.ops import cuda_ec, rs
+    from lizardfs_tpu_torch.parallel.sharded import make_mesh
+    from lizardfs_tpu_torch.utils import striping
+
+    n_cards = torch.cuda.device_count()
+    cuda_ec.reset_launches()
+    for key in RECOVERS:
+        RECOVERS[key] = 0
+    t0 = time.perf_counter()
+    ran = dryrun_multichip(n_cards)  # ec(32,8), 64 KiB blocks, 64 MiB logical
+    wparts, kill = ran["parts"], ran["kill"]
+    require((ran["k"], ran["m"], ran["block_size"], ran["k"] * ran["nb"] * ran["block_size"])
+            == (WIDE_K, WIDE_M, BS, CHUNK), "dryrun_multichip at the driver's shapes")
+    wide = ShardedCudaChunkEncoder(mesh=make_mesh())
+    golden_enc = CpuChunkEncoder()
+    for lost in ([kill], WIDE_LOST):
+        have = {i: wparts[i] for i in range(WIDE_K + WIDE_M) if i not in lost}
+        got, want = wide.recover(WIDE_K, WIDE_M, have, lost), golden_enc.recover(WIDE_K, WIDE_M, have, lost)
+        require(all((got[i] == want[i]).all() and (got[i] == wparts[i]).all() for i in lost),
+                f"sharded encoder rebuilt parts {lost} of the wide stripe")
+    require(RECOVERS == {"mesh": 2, "card": 0}, f"both wide rebuilds on the mesh: {RECOVERS}")
+    # the geometry the JAX package's guard sends to its mesh and its CRC
+    # refuses (ec(4,2), 384-byte parts): the port keeps it on one card
+    small = np.random.default_rng(SEED).integers(0, 256, (4, 384), dtype=np.uint8)
+    small = np.concatenate([small, np.stack(rs.encode(4, 2, list(small)))])
+    got = wide.recover(4, 2, {i: small[i] for i in range(1, 6)}, [0])
+    require(RECOVERS["card"] == 1 and (got[0] == small[0]).all(), "ec(4,2) 384-byte parts on one card")
+    # the registry keeps one encoder per name: a second split_chunk with
+    # no encoder reuses the first one's device matrix (no new tables)
+    registry = get_encoder()
+    striping.split_chunk(chunk, st)
+    tables = set(cuda_ec._MATRIX_TABLES)
+    striping.split_chunk(chunk, st)
+    require(get_encoder() is registry and set(cuda_ec._MATRIX_TABLES) == tables,
+            "get_encoder() returns one encoder; split_chunk reuses its matrix")
+    sync_all()
+    multi = dict(cuda_ec.LAUNCHES)
+    print(f"multi-device path: {n_cards} card(s), mesh {ran['mesh'].shape}, "
+          f"{time.perf_counter() - t0:.3f} s, launches {json.dumps(multi)}, "
+          f"recovers {json.dumps(RECOVERS)}, encoder {registry.name}")
+    for name in ("encode", "block_crcs"):
+        require(multi[name] >= 1, f"{name} launched on the multi-device path")
+    return {"mesh": ran["mesh"], "parts": wparts, "kill": kill, "encoder": wide}
+
+
+def time_multi_device(wide: dict, card: str) -> None:
+    """The ec(32,8) wide stripe over a 64 MiB logical chunk: the mesh step
+    and the sharded encoder's one-part rebuild beside one card's encoder,
+    numpy in and out (median of 5); ``resident_ms``: the data already on
+    ``cuda:0``, the outputs left on the cards."""
+    import torch
+
+    from lizardfs_tpu_torch.core.encoder import get_encoder
+    from lizardfs_tpu_torch.models import flagship
+    from lizardfs_tpu_torch.ops import cuda_ec, torch_ec
+
+    n_cards = torch.cuda.device_count()
+    dev = torch.device("cuda", 0)
+    wparts, kill = wide["parts"], wide["kill"]
     wdata = np.ascontiguousarray(wparts[:WIDE_K])
-    wstep = flagship.make_multichip_step(wmesh, WIDE_K, WIDE_M, BS)
+    wstep = flagship.make_multichip_step(wide["mesh"], WIDE_K, WIDE_M, BS)
     wdata_dev = torch.from_numpy(wdata).to(dev)
     wbigm = torch.from_numpy(torch_ec.encoding_bitmatrix(WIDE_K, WIDE_M)).to(dev)
     one_card = get_encoder("cuda")
@@ -535,23 +592,38 @@ def main() -> int:
          lambda: wstep(wdata_dev), n_cards),
         ("encoder_write_ec32_8_64MiB", lambda: one_card.encode_with_checksums(WIDE_K, WIDE_M, wdata, BS),
          lambda: cuda_ec.fused_encode_crc(wbigm, wdata_dev, BS), 1),
-        ("multichip_rebuild_ec32_8_1_part", lambda: wide.recover(WIDE_K, WIDE_M, wsurv, [kill]),
-         None, n_cards),
+        ("multichip_rebuild_ec32_8_1_part",
+         lambda: wide["encoder"].recover(WIDE_K, WIDE_M, wsurv, [kill]), None, n_cards),
         ("encoder_rebuild_ec32_8_1_part", lambda: one_card.recover(WIDE_K, WIDE_M, wsurv, [kill]),
          None, 1),
     ):
         print(json.dumps({
             "path": path, "median_ms": wall_ms(fn), "resident_ms": resident and wall_ms(resident),
-            "reps": 5, "devices": devices, "card": card,
+            "reps": 5, "devices": devices, "mesh": wide["mesh"].shape, "card": card,
         }))
+
+
+def multi_device_only() -> int:
+    """``--multi-device``: build, then only the multi-device path and its
+    timing, over every visible card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from lizardfs_tpu_torch.core import geometry
+    from lizardfs_tpu_torch.ops import _build
+
+    card = card_line()
+    print(f"card: {card} (x{torch.cuda.device_count()})")
+    _build.library()
+    chunk = np.random.default_rng(SEED).integers(0, 256, CHUNK, dtype=np.uint8)
+    wide = multi_device_path(chunk, geometry.ec_type(K, M))
+    time_multi_device(wide, card)
     print(card)
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    print_ok()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multi_device_only() if sys.argv[1:] == ["--multi-device"] else main())
