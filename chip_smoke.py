@@ -510,8 +510,8 @@ def wall_ms(fn, reps=5) -> float:
 
 def multi_device_path(chunk: np.ndarray, st) -> dict:
     """The multi-device path over a mesh of every visible card, with the
-    ``encode`` and ``block_crcs`` launch counters and the sharded
-    encoder's recover counters set to 0 before it and read after it:
+    ``encode`` and ``block_crcs`` launch counters set to 0 before it and
+    read after it, and the recover counters of a new sharded encoder:
     ``dryrun_multichip`` at the driver's shapes, ``ShardedCudaChunkEncoder``
     rebuilding one and then eight parts of that chunk (against the golden
     codec) and a geometry its guard keeps on one card, and the registry's
@@ -520,7 +520,7 @@ def multi_device_path(chunk: np.ndarray, st) -> dict:
     import torch
 
     from lizardfs_tpu_torch.core.encoder import (
-        RECOVERS, CpuChunkEncoder, ShardedCudaChunkEncoder, get_encoder)
+        CpuChunkEncoder, ShardedCudaChunkEncoder, get_encoder)
     from lizardfs_tpu_torch.entry import dryrun_multichip
     from lizardfs_tpu_torch.ops import cuda_ec, rs
     from lizardfs_tpu_torch.parallel.sharded import make_mesh
@@ -528,8 +528,6 @@ def multi_device_path(chunk: np.ndarray, st) -> dict:
 
     n_cards = torch.cuda.device_count()
     cuda_ec.reset_launches()
-    for key in RECOVERS:
-        RECOVERS[key] = 0
     t0 = time.perf_counter()
     ran = dryrun_multichip(n_cards)  # ec(32,8), 64 KiB blocks, 64 MiB logical
     wparts, kill = ran["parts"], ran["kill"]
@@ -542,13 +540,14 @@ def multi_device_path(chunk: np.ndarray, st) -> dict:
         got, want = wide.recover(WIDE_K, WIDE_M, have, lost), golden_enc.recover(WIDE_K, WIDE_M, have, lost)
         require(all((got[i] == want[i]).all() and (got[i] == wparts[i]).all() for i in lost),
                 f"sharded encoder rebuilt parts {lost} of the wide stripe")
-    require(RECOVERS == {"mesh": 2, "card": 0}, f"both wide rebuilds on the mesh: {RECOVERS}")
+    require(wide.recovers == {"mesh": 2, "card": 0}, f"both wide rebuilds on the mesh: {wide.recovers}")
     # the geometry the JAX package's guard sends to its mesh and its CRC
     # refuses (ec(4,2), 384-byte parts): the port keeps it on one card
     small = np.random.default_rng(SEED).integers(0, 256, (4, 384), dtype=np.uint8)
     small = np.concatenate([small, np.stack(rs.encode(4, 2, list(small)))])
     got = wide.recover(4, 2, {i: small[i] for i in range(1, 6)}, [0])
-    require(RECOVERS["card"] == 1 and (got[0] == small[0]).all(), "ec(4,2) 384-byte parts on one card")
+    require(wide.recovers["card"] == 1 and (got[0] == small[0]).all(),
+            "ec(4,2) 384-byte parts on one card")
     # the registry keeps one encoder per name: a second split_chunk with
     # no encoder reuses the first one's device matrix (no new tables)
     registry = get_encoder()
@@ -561,7 +560,7 @@ def multi_device_path(chunk: np.ndarray, st) -> dict:
     multi = dict(cuda_ec.LAUNCHES)
     print(f"multi-device path: {n_cards} card(s), mesh {ran['mesh'].shape}, "
           f"{time.perf_counter() - t0:.3f} s, launches {json.dumps(multi)}, "
-          f"recovers {json.dumps(RECOVERS)}, encoder {registry.name}")
+          f"recovers {json.dumps(wide.recovers)}, encoder {registry.name}")
     for name in ("encode", "block_crcs"):
         require(multi[name] >= 1, f"{name} launched on the multi-device path")
     return {"mesh": ran["mesh"], "parts": wparts, "kill": kill, "encoder": wide}
@@ -578,7 +577,6 @@ def time_multi_device(wide: dict, card: str) -> None:
     from lizardfs_tpu_torch.models import flagship
     from lizardfs_tpu_torch.ops import cuda_ec, torch_ec
 
-    n_cards = torch.cuda.device_count()
     dev = torch.device("cuda", 0)
     wparts, kill = wide["parts"], wide["kill"]
     wdata = np.ascontiguousarray(wparts[:WIDE_K])
@@ -587,19 +585,21 @@ def time_multi_device(wide: dict, card: str) -> None:
     wbigm = torch.from_numpy(torch_ec.encoding_bitmatrix(WIDE_K, WIDE_M)).to(dev)
     one_card = get_encoder("cuda")
     wsurv = {i: wparts[i] for i in range(WIDE_K + WIDE_M) if i != kill}
-    for path, fn, resident, devices in (
+    for path, fn, resident, mesh in (
         ("multichip_encode_ec32_8_64MiB", lambda: [a.gather() for a in wstep(wdata)],
-         lambda: wstep(wdata_dev), n_cards),
+         lambda: wstep(wdata_dev), wide["mesh"]),
         ("encoder_write_ec32_8_64MiB", lambda: one_card.encode_with_checksums(WIDE_K, WIDE_M, wdata, BS),
-         lambda: cuda_ec.fused_encode_crc(wbigm, wdata_dev, BS), 1),
+         lambda: cuda_ec.fused_encode_crc(wbigm, wdata_dev, BS), None),
         ("multichip_rebuild_ec32_8_1_part",
-         lambda: wide["encoder"].recover(WIDE_K, WIDE_M, wsurv, [kill]), None, n_cards),
+         lambda: wide["encoder"].recover(WIDE_K, WIDE_M, wsurv, [kill]), None,
+         wide["encoder"].mesh),
         ("encoder_rebuild_ec32_8_1_part", lambda: one_card.recover(WIDE_K, WIDE_M, wsurv, [kill]),
-         None, 1),
+         None, None),
     ):
         print(json.dumps({
             "path": path, "median_ms": wall_ms(fn), "resident_ms": resident and wall_ms(resident),
-            "reps": 5, "devices": devices, "mesh": wide["mesh"].shape, "card": card,
+            "reps": 5, "devices": mesh.size if mesh else 1, "mesh": mesh and mesh.shape,
+            "card": card,
         }))
 
 

@@ -30,10 +30,6 @@ from lizardfs_tpu_torch.parallel import recovery, sharded
 _MATRIX_CACHE = 256  # device matrices an encoder keeps (oldest dropped first)
 _STEP_CACHE = 64  # mesh rebuild steps a sharded encoder keeps (then cleared)
 
-# Which path each ShardedCudaChunkEncoder.recover call took: "mesh" (the
-# sharded rebuild) or "card" (CudaChunkEncoder.recover on one card).
-RECOVERS = {"mesh": 0, "card": 0}
-
 
 class ChunkEncoder(abc.ABC):
     """EC compute backend interface."""
@@ -224,20 +220,15 @@ class CudaChunkEncoder(ChunkEncoder):
         torch.from_numpy(out).copy_(torch_ec.xor_reduce(self._stage(parts)))
 
 
-def _crc_block(nbytes: int) -> bool:
-    """Whether the CRC functions take blocks of ``nbytes``: 64 x 2^a."""
-    sub = nbytes // torch_ec.CRC_SUBBLOCK
-    return nbytes > 0 and nbytes % torch_ec.CRC_SUBBLOCK == 0 and sub & (sub - 1) == 0
-
-
 class ShardedCudaChunkEncoder(CudaChunkEncoder):
     """Mesh-sharded wide-stripe backend, the counterpart of the JAX
     package's ``ShardedTpuChunkEncoder``: ``recover`` rides the mesh
     (parallel/recovery.py) whenever the geometry divides it and runs
     ``CudaChunkEncoder.recover`` on the mesh's first device otherwise;
-    every other method runs on that device. ``RECOVERS`` counts the two
-    paths. ``LZ_SHARDED_RECOVERY=0`` kills it: the constructor refuses,
-    and a live instance rebuilds on one card (read at call time).
+    every other method runs on that device. ``recovers`` counts the calls
+    that took each path. ``LZ_SHARDED_RECOVERY=0`` kills it: the
+    constructor refuses, and a live instance rebuilds on one card (the
+    switch is read at call time).
 
     With no mesh it needs two or more cards and builds :func:`make_mesh`
     over all of them; an explicit mesh of any size is taken as it is.
@@ -254,8 +245,8 @@ class ShardedCudaChunkEncoder(CudaChunkEncoder):
                 raise RuntimeError(f"mesh-sharded recovery needs >= 2 cards, have {cards}")
             mesh = sharded.make_mesh()
         super().__init__(mesh.devices.flat[0])
-        self._mesh = mesh
-        self._n_mesh = mesh.size
+        self.mesh = mesh
+        self.recovers = {"mesh": 0, "card": 0}
         # rebuild steps (their per-device matrices and tables) by geometry
         # and erasure pattern: a replicator's steady state is a handful
         self._rec_steps: dict[tuple, object] = {}
@@ -265,7 +256,7 @@ class ShardedCudaChunkEncoder(CudaChunkEncoder):
         step = self._rec_steps.get(key)
         if step is None:
             step = recovery.sharded_reconstruct_with_crcs(
-                self._mesh, k, m, list(avail), list(wanted), block_size)
+                self.mesh, k, m, list(avail), list(wanted), block_size)
             if len(self._rec_steps) > _STEP_CACHE:
                 self._rec_steps.clear()
             self._rec_steps[key] = step
@@ -277,21 +268,22 @@ class ShardedCudaChunkEncoder(CudaChunkEncoder):
         # mesh, the bytes dividing it into blocks the CRC takes (64 x 2^a;
         # the JAX package's guard asks only for a multiple of 64), and no
         # elided (None) inputs
-        block = nbytes // self._n_mesh
+        n = self.mesh.size
+        block = nbytes // n
         if (
             not recovery.enabled()
-            or k % self._n_mesh
-            or nbytes % self._n_mesh
-            or not _crc_block(block)
+            or k % n
+            or nbytes % n
+            or not torch_ec.is_block_size(block)
             or any(p is None for p in parts.values())
         ):
-            RECOVERS["card"] += 1
+            self.recovers["card"] += 1
             return super().recover(k, m, parts, wanted)
         wanted = list(wanted)
         step = self._mesh_recover_step(k, m, tuple(sorted(parts)), tuple(wanted), block)
         rec, _crcs = step([np.asarray(parts[i]) for i in step.used])
         out = rec.gather().reshape(len(wanted), -1)
-        RECOVERS["mesh"] += 1
+        self.recovers["mesh"] += 1
         return {w: out[i] for i, w in enumerate(wanted)}
 
 

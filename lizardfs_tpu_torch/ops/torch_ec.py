@@ -39,11 +39,17 @@ CRC_SUBBLOCK = 64
 _CRC_ROWS_PER_BATCH = 256
 
 
-def check_block_size(block_size: int) -> None:
-    """Block sizes the CRC functions take: a power-of-two count of
-    64-byte sub-blocks (the constraint of the JAX package's ``block_crcs``)."""
+def is_block_size(block_size: int) -> bool:
+    """Whether the CRC functions take blocks of ``block_size`` bytes: a
+    power-of-two count of 64-byte sub-blocks (the constraint of the JAX
+    package's ``block_crcs``)."""
     nsub = block_size // CRC_SUBBLOCK
-    if block_size <= 0 or block_size % CRC_SUBBLOCK or nsub & (nsub - 1):
+    return block_size > 0 and block_size % CRC_SUBBLOCK == 0 and nsub & (nsub - 1) == 0
+
+
+def check_block_size(block_size: int) -> None:
+    """Raise unless :func:`is_block_size`."""
+    if not is_block_size(block_size):
         raise ValueError(
             f"block_size={block_size} must be 64 bytes times a power of two"
         )

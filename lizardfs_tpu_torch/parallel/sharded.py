@@ -41,29 +41,26 @@ import torch
 from lizardfs_tpu_torch.ops import cuda_ec, torch_ec
 
 
-class Mesh:
-    """An ordered grid of torch devices with named axes: ``devices`` is an
-    object array of the grid's shape, ``shape`` maps axis name to size."""
+AXES = ("stripe", "block")
 
-    def __init__(self, devices, axis_names: tuple[str, ...]):
-        flat = [torch.device(d) for d in np.asarray(devices, dtype=object).reshape(-1)]
-        grid = np.empty(len(flat), dtype=object)
-        grid[:] = flat
-        self.devices = grid.reshape(np.shape(devices))
-        self.axis_names = tuple(axis_names)
-        if self.devices.ndim != len(self.axis_names):
-            raise ValueError(f"{self.devices.ndim}-D device grid, axes {self.axis_names}")
+
+class Mesh:
+    """An ordered grid of torch devices: ``devices`` is an object array of
+    shape (stripe,) or (stripe, block). Axis "stripe" splits the parts of
+    a stripe, axis "block" (2-D only) their block ranges."""
+
+    def __init__(self, devices, shape: tuple[int, ...]):
+        grid = np.empty(len(devices), dtype=object)
+        grid[:] = [torch.device(d) for d in devices]
+        self.devices = grid.reshape(shape)
 
     @property
     def shape(self) -> dict[str, int]:
-        return dict(zip(self.axis_names, self.devices.shape))
+        return dict(zip(AXES, self.devices.shape))
 
     @property
     def size(self) -> int:
         return self.devices.size
-
-    def __repr__(self) -> str:
-        return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
 
 
 def _default_devices() -> list[torch.device]:
@@ -76,16 +73,13 @@ def _default_devices() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(count)]
 
 
-def make_mesh(devices=None, axis: str = "stripe") -> Mesh:
+def make_mesh(devices=None) -> Mesh:
     """1-D mesh over ``devices`` (default: every visible CUDA device)."""
     devices = list(devices) if devices is not None else _default_devices()
-    return Mesh(np.array(devices, dtype=object), (axis,))
+    return Mesh(devices, (len(devices),))
 
 
-def make_mesh_2d(
-    stripe: int, block: int, devices=None,
-    axes: tuple[str, str] = ("stripe", "block"),
-) -> Mesh:
+def make_mesh_2d(stripe: int, block: int, devices=None) -> Mesh:
     """2-D mesh: stripe-parallel x block-parallel (parts of one stripe
     spread over the stripe axis and joined by the exchange; disjoint
     block ranges over the block axis, with no communication)."""
@@ -95,14 +89,13 @@ def make_mesh_2d(
             f"mesh {stripe}x{block} needs {stripe * block} devices, "
             f"have {len(devices)}"
         )
-    return Mesh(np.array(devices, dtype=object).reshape(stripe, block), axes)
+    return Mesh(devices, (stripe, block))
 
 
 class Shard(NamedTuple):
     """One device's piece of a :class:`ShardedArray`: ``index`` says where
-    ``data`` sits in the global array."""
+    ``data`` (on that device) sits in the global array."""
 
-    device: torch.device
     index: tuple[slice, ...]
     data: torch.Tensor
 
@@ -118,23 +111,19 @@ class ShardedArray:
         self.crc = crc
 
     def gather(self) -> np.ndarray:
-        out = np.empty(self.shape, np.uint32 if self.crc else np.uint8)
+        dtype = np.uint32 if self.crc else np.uint8
+        if len(self.shards) == 1:  # one device holds it all: no second copy
+            return _to_host(self.shards[0].data).view(dtype).reshape(self.shape)
+        out = np.empty(self.shape, dtype)
         for shard in self.shards:
             host = _to_host(shard.data)
             out[shard.index] = host.view(np.uint32) if self.crc else host
         return out
 
-    def __array__(self, dtype=None, copy=None):
-        out = self.gather()
-        return out if dtype is None else out.astype(dtype)
-
 
 def stripe_block_grid(mesh: Mesh) -> np.ndarray:
     """The mesh as a (stripe, block) grid; a 1-D mesh has one block column."""
-    stripe_axis = mesh.axis_names[0]
-    n_stripe = mesh.shape[stripe_axis]
-    n_block = mesh.shape[mesh.axis_names[1]] if len(mesh.axis_names) > 1 else 1
-    return mesh.devices.reshape(n_stripe, n_block)
+    return mesh.devices.reshape(mesh.devices.shape[0], -1)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -210,21 +199,21 @@ class MeshApply:
         for (t, b), owner in np.ndenumerate(self.grid):
             acc = None
             for s in range(n_stripe):
-                rng = partials[s, b].view(w, n_stripe, nb_own * bs)[:, t].to(owner)
-                acc = rng if acc is None else acc ^ rng  # out of place
+                piece = partials[s, b].view(w, n_stripe, nb_own * bs)[:, t].to(owner)
+                acc = piece if acc is None else acc ^ piece  # out of place
             out = acc.contiguous().view(w, nb_own, bs)
             crcs = cuda_ec.block_crcs(out.view(w * nb_own, bs), bs).view(w, nb_own)
             blocks = slice(nb_own * (n_stripe * b + t), nb_own * (n_stripe * b + t + 1))
-            out_shards.append(Shard(owner, (slice(None), blocks, slice(None)), out))
-            crc_shards.append(Shard(owner, (slice(None), blocks), crcs))
+            out_shards.append(Shard((slice(None), blocks, slice(None)), out))
+            crc_shards.append(Shard((slice(None), blocks), crcs))
         result = [ShardedArray((w, nb, bs), out_shards),
                   ShardedArray((w, nb), crc_shards, crc=True)]
         if self.crc_inputs:
             in_shards = []
-            for (s, b), dev in np.ndenumerate(self.grid):
-                crcs = cuda_ec.block_crcs(local[s, b].view(r_loc * nb_loc, bs), bs)
+            for (s, b), rows in local.items():
+                crcs = cuda_ec.block_crcs(rows.view(r_loc * nb_loc, bs), bs)
                 index = (slice(r_loc * s, r_loc * (s + 1)), slice(nb_loc * b, nb_loc * (b + 1)))
-                in_shards.append(Shard(dev, index, crcs.view(r_loc, nb_loc)))
+                in_shards.append(Shard(index, crcs.view(r_loc, nb_loc)))
             result.append(ShardedArray((self.r, nb), in_shards, crc=True))
         return result
 
@@ -234,9 +223,9 @@ def sharded_encode_with_crcs(mesh: Mesh, k: int, m: int, block_size: int):
 
     Returns ``run(data)`` where data is (k, nb*block_size) uint8 (numpy,
     a list of k numpy rows, or a tensor on any device); outputs are
-    ShardedArrays (parity (m, nb,
-    block_size) block-sharded, data_crcs (k, nb), parity_crcs (m, nb)).
-    nb and k must be divisible by the mesh size.
+    ShardedArrays (parity (m, nb, block_size) block-sharded, data_crcs
+    (k, nb), parity_crcs (m, nb)). nb and k must be divisible by the mesh
+    size.
     """
     grid = stripe_block_grid(mesh)
     n_stripe, n_block = grid.shape

@@ -20,12 +20,7 @@ from lizardfs_tpu.parallel import recovery as ref_recovery
 from lizardfs_tpu.parallel import sharded as ref_sharded
 from lizardfs_tpu_torch import constants
 from lizardfs_tpu_torch.core import encoder as port_encoder
-from lizardfs_tpu_torch.core.encoder import (
-    RECOVERS,
-    CpuChunkEncoder,
-    ShardedCudaChunkEncoder,
-    get_encoder,
-)
+from lizardfs_tpu_torch.core.encoder import CpuChunkEncoder, ShardedCudaChunkEncoder, get_encoder
 from lizardfs_tpu_torch.entry import dryrun_multichip
 from lizardfs_tpu_torch.models import flagship
 from lizardfs_tpu_torch.parallel import recovery, sharded
@@ -63,7 +58,7 @@ def _same_layout(port, ref, ref_mesh):
         got = shard.data.numpy()
         np.testing.assert_array_equal(got.view(np.uint32) if port.crc else got,
                                       np.asarray(want.data))
-    np.testing.assert_array_equal(np.asarray(port), np.asarray(ref))
+    np.testing.assert_array_equal(port.gather(), np.asarray(ref))
 
 
 def _data(seed, k, nb):
@@ -183,14 +178,12 @@ def test_sharded_encoder_recover(k, m, nbytes, lost, mesh_shape, path):
     the path the reference's guard (plus the CRC block rule) picks."""
     allp, parts = _parts_of(k, m, nbytes, k + nbytes, lost)
     enc = ShardedCudaChunkEncoder(_port_mesh(*mesh_shape))
-    before = dict(RECOVERS)
     got = enc.recover(k, m, parts, lost)
     want = cpu.recover(k, m, parts, lost)
     for w in lost:
         np.testing.assert_array_equal(got[w], want[w])
         np.testing.assert_array_equal(got[w], allp[w])
-    other = "card" if path == "mesh" else "mesh"
-    assert RECOVERS[path] == before[path] + 1 and RECOVERS[other] == before[other]
+    assert enc.recovers == {"mesh": 0, "card": 0, path: 1}
 
 
 def test_reference_guard_fault_is_routed_to_the_card():
@@ -210,10 +203,10 @@ def test_zero_parts_take_the_card_path():
     allp[3] = 0
     parts = {i: allp[i] for i in parts}
     parts[3] = None
-    before = RECOVERS["card"]
-    got = ShardedCudaChunkEncoder(_port_mesh(8)).recover(8, 4, parts, [1])
+    enc = ShardedCudaChunkEncoder(_port_mesh(8))
+    got = enc.recover(8, 4, parts, [1])
     np.testing.assert_array_equal(got[1], cpu.recover(8, 4, parts, [1])[1])
-    assert RECOVERS["card"] == before + 1
+    assert enc.recovers == {"mesh": 0, "card": 1}
 
 
 @pytest.mark.parametrize("off", ["0", "off", "FALSE", "No"])
@@ -232,6 +225,7 @@ def test_kill_switch(monkeypatch, off):
 
     monkeypatch.setattr(enc, "_mesh_recover_step", poisoned)
     np.testing.assert_array_equal(enc.recover(8, 4, parts, [3])[3], allp[3])
+    assert enc.recovers == {"mesh": 0, "card": 1}
     monkeypatch.setenv("LZ_SHARDED_RECOVERY", "1")
     with pytest.raises(AssertionError, match="kill switch"):
         enc.recover(8, 4, parts, [3])
