@@ -35,6 +35,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
 7. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero.
+
+``python3 chip_smoke.py --multi-device`` builds the kernels and runs only
+step 5 and its timing, over every visible card: the run for a machine
+with several cards.
 """
 
 from __future__ import annotations
