@@ -516,7 +516,7 @@ def multi_device_path(chunk: np.ndarray, st) -> dict:
     """The multi-device path over a mesh of every visible card, with the
     ``encode`` and ``block_crcs`` launch counters set to 0 before it and
     read after it, and the recover counters of a new sharded encoder:
-    ``dryrun_multichip`` at the driver's shapes, ``ShardedCudaChunkEncoder``
+    ``dryrun_multichip`` at its full default shapes, ``ShardedCudaChunkEncoder``
     rebuilding one and then eight parts of that chunk (against the golden
     codec) and a geometry its guard keeps on one card, and the registry's
     one encoder per name (through ``split_chunk`` of ``chunk`` at ``st``).
@@ -536,7 +536,7 @@ def multi_device_path(chunk: np.ndarray, st) -> dict:
     ran = dryrun_multichip(n_cards)  # ec(32,8), 64 KiB blocks, 64 MiB logical
     wparts, kill = ran["parts"], ran["kill"]
     require((ran["k"], ran["m"], ran["block_size"], ran["k"] * ran["nb"] * ran["block_size"])
-            == (WIDE_K, WIDE_M, BS, CHUNK), "dryrun_multichip at the driver's shapes")
+            == (WIDE_K, WIDE_M, BS, CHUNK), "dryrun_multichip at its full default shapes")
     wide = ShardedCudaChunkEncoder(mesh=make_mesh())
     golden_enc = CpuChunkEncoder()
     for lost in ([kill], WIDE_LOST):

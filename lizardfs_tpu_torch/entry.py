@@ -39,7 +39,7 @@ def dryrun_multichip(
     devices=None,
 ) -> dict:
     """Both multi-device legs (wide-stripe encode+CRC, then kill-one-part
-    reconstruct+verify) at driver shapes by default: ec(32,8) over a 64
+    reconstruct+verify) at full shapes by default: ec(32,8) over a 64
     MiB logical chunk of 64 KiB blocks on an 8-device mesh. The keyword
     overrides let the CPU tests run the same code on a small mesh.
     Raises on any mismatch; returns what it ran: the mesh, k, m,
