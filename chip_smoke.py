@@ -27,7 +27,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    ``block_crcs`` counters and the mesh-recover counter are read around
    it;
 6. times each kernel and its plain version with CUDA events, the CRC
-   kernels on rows off a 16-byte boundary, the encoder's write and
+   wrappers on rows off a 16-byte boundary, the encoder's write and
    one-part rebuild end to end (numpy in and out) at ec(8,4), and the
    ec(32,8) wide-stripe encode and rebuild on the mesh beside one card's
    encoder, and prints one JSON line per kernel and per path, the card,
@@ -35,10 +35,6 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
 7. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero.
-
-``python3 chip_smoke.py --multi-device`` builds the kernels and runs only
-step 5 and its timing, over every visible card: the run for a machine
-with several cards.
 """
 
 from __future__ import annotations
@@ -67,15 +63,12 @@ WINDOW_MS = 50.0  # each timing window lasts at least this long
 WINDOWS = 5  # timings report the median window
 SOURCE = "lizardfs_tpu_torch/ops/csrc/ec_kernels.cu"
 SASS = {  # kernel: pattern of its (mangled) name in cuobjdump's listing
-    "fused_encode_crc_kernel<true>": "fused_encode_crc_kernelILb1E",
-    "fused_encode_crc_kernel<false>": "fused_encode_crc_kernelILb0E",
+    "fused_encode_crc_kernel": "fused_encode_crc_kernel",
     "crc_fold_kernel": "crc_fold_kernel",
     "gf_apply_kernel<true>": "gf_apply_kernelILb1E",
     "gf_apply_kernel<false>": "gf_apply_kernelILb0E",
-    "block_crc_kernel<true>": "block_crc_kernelILb1E",
-    "block_crc_kernel<false>": "block_crc_kernelILb0E",
+    "block_crc_kernel": "block_crc_kernel",
 }
-OFFSETS = (1, 4, 8, 15)  # byte offsets from a 16-byte boundary: each word select and shift
 WIDE_K, WIDE_M = 32, 8  # the wide stripe of the multi-device path
 WIDE_LOST = [0, 5, 9, 16, 31, 33, 36, 39]  # eight parts of ec(32,8), data and parity
 REPLACES = {
@@ -281,7 +274,7 @@ def main() -> int:
             require(bool(ok.all()), f"{what}: every rebuilt block verifies")
 
     # rows off a 16-byte boundary (views such as buf[1:].view(B, bs)):
-    # the CRC kernels' shifted-load instantiations
+    # the CRC wrappers copy them to an aligned buffer
     def offset_view(rows, offset):
         flat = torch.empty(rows.numel() + offset, dtype=torch.uint8, device=dev)
         view = flat[offset:].view(rows.shape)
@@ -290,22 +283,17 @@ def main() -> int:
         return view
 
     rec_m, surv, expected = decode_cases[4]
-    for offset in OFFSETS:
-        sizes = (blocks, data, surv) if offset == 1 else (blocks[:33], data[:, :4 * BS],
-                                                          surv[:, :4 * BS])
-        b, x, sv = (offset_view(t, offset) for t in sizes)
-        what = f"{offset} bytes off a boundary, {tuple(b.shape)}"
-        same("block_crcs", cuda_ec.block_crcs(b, BS), torch_ec.block_crcs(sizes[0], BS),
-             what, crc=True)
-        got, want = cuda_ec.fused_encode_crc(bigm, x, BS), torch_ec.fused_encode_crc(bigm, sizes[1], BS)
-        for part, (u, v) in enumerate(zip(got, want)):
-            same("fused_encode_crc", u, v, f"{what} output {part}", crc=part > 0)
-        exp = expected[:, :sv.shape[1] // BS].contiguous()
-        got = cuda_ec.fused_decode_verify(rec_m, sv, exp, BS)
-        want = torch_ec.fused_decode_verify(rec_m, sizes[2], exp, BS)
-        for part, (u, v) in enumerate(zip(got, want)):
-            same("fused_decode_verify", u, v, f"{what} output {part}", crc=part == 1)
-        require(bool(got[2].all()), f"decode {what}: every block verifies")
+    b, x, sv = (offset_view(t, 1) for t in (blocks, data, surv))
+    what = "1 byte off a boundary"
+    same("block_crcs", cuda_ec.block_crcs(b, BS), torch_ec.block_crcs(blocks, BS), what, crc=True)
+    got, want = cuda_ec.fused_encode_crc(bigm, x, BS), torch_ec.fused_encode_crc(bigm, data, BS)
+    for part, (u, v) in enumerate(zip(got, want)):
+        same("fused_encode_crc", u, v, f"{what} output {part}", crc=part > 0)
+    got = cuda_ec.fused_decode_verify(rec_m, sv, expected, BS)
+    want = torch_ec.fused_decode_verify(rec_m, surv, expected, BS)
+    for part, (u, v) in enumerate(zip(got, want)):
+        same("fused_decode_verify", u, v, f"{what} output {part}", crc=part == 1)
+    require(bool(got[2].all()), f"decode {what}: every block verifies")
     torch.cuda.synchronize()
     print("kernels match their plain versions and the golden path")
 
@@ -315,7 +303,7 @@ def main() -> int:
     st = geometry.ec_type(K, M)
     cuda_ec.reset_launches()
     t0 = time.perf_counter()
-    enc = get_encoder()  # "cuda" on cuda:0 with one card, "sharded" with more
+    enc = get_encoder("cuda")  # cuda:0, however many cards there are
     parts = striping.split_chunk(chunk, st, enc)
     stripe = np.stack([parts[i] for i in range(K)])
     w_parity, w_dcrc, w_pcrc = enc.encode_with_checksums(K, M, stripe, BS)
@@ -461,8 +449,9 @@ def main() -> int:
     ):
         print(json.dumps({"path": path, "median_ms": wall_ms(fn), "reps": 5, "card": card}))
 
-    # CRC kernels on rows off a 16-byte boundary, beside the aligned call
-    # (device time per call; the aligned rows are the kernel lines' inputs)
+    # CRC wrappers on rows off a 16-byte boundary (an aligned copy, then
+    # the kernels), beside the aligned call (device time per call; the
+    # aligned rows are the kernel lines' inputs)
     b1, x1 = offset_view(blocks, 1), offset_view(data, 1)
     for name, aligned_fn, offset_fn in (
         ("block_crcs", lambda: cuda_ec.block_crcs(blocks, BS), lambda: cuda_ec.block_crcs(b1, BS)),
@@ -607,27 +596,5 @@ def time_multi_device(wide: dict, card: str) -> None:
         }))
 
 
-def multi_device_only() -> int:
-    """``--multi-device``: build, then only the multi-device path and its
-    timing, over every visible card."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
-        return 2
-    from lizardfs_tpu_torch.core import geometry
-    from lizardfs_tpu_torch.ops import _build
-
-    card = card_line()
-    print(f"card: {card} (x{torch.cuda.device_count()})")
-    _build.library()
-    chunk = np.random.default_rng(SEED).integers(0, 256, CHUNK, dtype=np.uint8)
-    wide = multi_device_path(chunk, geometry.ec_type(K, M))
-    time_multi_device(wide, card)
-    print(card)
-    print_ok()
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(multi_device_only() if sys.argv[1:] == ["--multi-device"] else main())
+    sys.exit(main())

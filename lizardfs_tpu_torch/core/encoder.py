@@ -297,7 +297,8 @@ def get_encoder(name: str | None = None, device=None) -> ChunkEncoder:
     golden), "cuda" (the kernels on ``device``, default ``cuda:0``) or
     "sharded" (:class:`ShardedCudaChunkEncoder` over every card). None or
     "auto" without a device tries "sharded" (two or more cards, switch
-    open) and then "cuda"; nothing lands on the CPU unless asked to."""
+    open) and then "cuda"; nothing lands on the CPU unless asked to. Only
+    "cuda" and "auto" take a device."""
     if name in (None, "auto"):
         if device is None:
             try:
@@ -307,6 +308,8 @@ def get_encoder(name: str | None = None, device=None) -> ChunkEncoder:
         name = "cuda"
     if name not in ("cpu", "cuda", "sharded"):
         raise ValueError(f"unknown encoder backend {name!r}")
+    if device is not None and name != "cuda":
+        raise ValueError(f"encoder backend {name!r} takes no device, got {device!r}")
     key = (name, cuda_ec.resolve_device(device) if name == "cuda" else None)
     if key not in _ENCODERS:
         _ENCODERS[key] = (

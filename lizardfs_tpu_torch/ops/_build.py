@@ -78,10 +78,10 @@ def library() -> ctypes.CDLL:
         "lz_resident": [i32, i32, i32, i32, i32],
         "lz_gf_apply": [ptr, ptr, ptr, i32, i32, i64, i32, i32, i32, ptr],
         "lz_block_crcs": [ptr, i64, i32, i32, i32, i32, ptr, ptr, i32, ptr, u32, i32, ptr, ptr,
-                          i32, ptr],
+                          ptr],
         "lz_fused_encode_crc": [
             ptr, ptr, i32, i32, i64, i32, i32, i32, ptr, ptr, i32, ptr, u32, i32,
-            ptr, ptr, ptr, ptr, ptr, i32, ptr,
+            ptr, ptr, ptr, ptr, ptr, ptr,
         ],
     }
     for name, argtypes in signatures.items():

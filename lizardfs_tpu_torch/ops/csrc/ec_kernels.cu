@@ -79,12 +79,6 @@
 //    crc_fold_kernel then folds the slab registers of each (row, block),
 //    XORs K, and optionally compares with the stored CRCs.
 //
-// Rows that start off a 16-byte boundary: the block CRC and fused kernels
-// have a second instantiation (kAligned = false) whose 16-byte loads are
-// two aligned loads joined with funnel shifts (load16). A launch's rows
-// all sit at the same offset from a boundary (blocks and rows are
-// multiples of 64 bytes long), so its word select is uniform.
-//
 // What bounds the fused and block CRC designs on the H100 is integer
 // issue and shared memory, not bytes: each lookup spends about three
 // integer instructions on its nibble's or byte's offset and its table's
@@ -122,31 +116,6 @@ __device__ __forceinline__ uint32_t crc_raw8(const uint32_t (*t)[256],
 __device__ __forceinline__ uint32_t crc_raw16(const uint32_t (*t)[256],
                                               uint32_t crc, const uint4 v) {
   return crc_raw8(t, crc_raw8(t, crc, v.x, v.y), v.z, v.w);
-}
-
-// The 16 bytes at p. kAligned: p is 16-byte aligned. Otherwise p is off a
-// 16-byte boundary (never on one): the two aligned 16-byte runs that hold
-// bytes p..p+15 are loaded and joined, so no byte outside those runs (and
-// so outside the allocation) is read.
-template <bool kAligned>
-__device__ __forceinline__ uint4 load16(const uint8_t* p) {
-  if constexpr (kAligned) {
-    return *reinterpret_cast<const uint4*>(p);
-  } else {
-    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-    const uint4* const q = reinterpret_cast<const uint4*>(a & ~static_cast<uintptr_t>(15));
-    const uint4 lo = q[0], hi = q[1];
-    const uint32_t sh = 8u * static_cast<uint32_t>(a & 3u);
-    uint32_t w0, w1, w2, w3, w4;  // the five words from the one holding p
-    switch ((a >> 2) & 3u) {
-      case 0: w0 = lo.x; w1 = lo.y; w2 = lo.z; w3 = lo.w; w4 = hi.x; break;
-      case 1: w0 = lo.y; w1 = lo.z; w2 = lo.w; w3 = hi.x; w4 = hi.y; break;
-      case 2: w0 = lo.z; w1 = lo.w; w2 = hi.x; w3 = hi.y; w4 = hi.z; break;
-      default: w0 = lo.w; w1 = hi.x; w2 = hi.y; w3 = hi.z; w4 = hi.w; break;
-    }
-    return make_uint4(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
-                      __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
-  }
 }
 
 // dst[0:words] = src[0:words] with 16-byte loads; words % 4 == 0 and both
@@ -273,17 +242,17 @@ __global__ void __launch_bounds__(256) gf_apply_kernel(
 
 // x[i][v] = vector v of this thread's span in load i of the step at slab
 // c0 (block_crc_kernel's layout), for the loads that hold slabs.
-template <bool kAligned>
 __device__ __forceinline__ void load_step(uint4 (&x)[kCrcSteps][kCrcVecs],
                                           const uint8_t* __restrict__ blocks,
                                           long long c0, long long slabs, int G,
                                           int row, long long load) {
-  const uint8_t* const p = blocks + c0 * (load / G) + threadIdx.x * 16LL * kCrcVecs;
+  const uint4* const p = reinterpret_cast<const uint4*>(
+      blocks + c0 * (load / G) + threadIdx.x * 16LL * kCrcVecs);
 #pragma unroll
   for (int i = 0; i < kCrcSteps; ++i)
 #pragma unroll
     for (int v = 0; v < kCrcVecs; ++v)
-      if (c0 + i * G + row < slabs) x[i][v] = load16<kAligned>(p + i * load + 16 * v);
+      if (c0 + i * G + row < slabs) x[i][v] = p[i * (load / 16) + v];
 }
 
 // Raw CRC registers of the slabs that tile the blocks: a slab is T =
@@ -297,7 +266,6 @@ __device__ __forceinline__ void load_step(uint4 (&x)[kCrcSteps][kCrcVecs],
 // rows in one tree; the next step's loads are issued before the tree. Two
 // register buffers alternate between steps, so a step needs no barrier
 // after its registers are read out.
-template <bool kAligned>
 __global__ void __launch_bounds__(256) block_crc_kernel(
     const uint8_t* __restrict__ blocks, long long slabs,
     const uint32_t* __restrict__ crc_tabs,
@@ -315,7 +283,7 @@ __global__ void __launch_bounds__(256) block_crc_kernel(
   const long long load = 16LL * kCrcVecs * blockDim.x;         // bytes a load
   uint4 x[kCrcSteps][kCrcVecs];
   long long c0 = blockIdx.x * per;
-  if (c0 < slabs) load_step<kAligned>(x, blocks, c0, slabs, G, row, load);
+  if (c0 < slabs) load_step(x, blocks, c0, slabs, G, row, load);
   __syncthreads();
   const uint32_t(*tabs)[256] = reinterpret_cast<const uint32_t(*)[256]>(sm);
   const int stride = span_slot(1 << levels);
@@ -331,7 +299,7 @@ __global__ void __launch_bounds__(256) block_crc_kernel(
       if (i * G + row < rows) buf[(i * G + row) * stride + slot] = crc;
     }
     if (c0 + gridDim.x * per < slabs)
-      load_step<kAligned>(x, blocks, c0 + gridDim.x * per, slabs, G, row, load);
+      load_step(x, blocks, c0 + gridDim.x * per, slabs, G, row, load);
     __syncthreads();
     crc_tree_nibbles(buf, rows, stride, levels, lvl);
     for (int i = threadIdx.x; i < rows; i += blockDim.x) regs_out[c0 + i] = buf[i * stride];
@@ -346,7 +314,6 @@ __global__ void __launch_bounds__(256) block_crc_kernel(
 // gf_tabs (ceil(m/4), k, 32), crc_tabs (8, 256) and level_tabs (levels,
 // 8, 16) are the host-built tables of kernel_tables.py; level l shifts by
 // 16 * 2^l bytes.
-template <bool kAligned>
 __global__ void __launch_bounds__(256) fused_encode_crc_kernel(
     const uint32_t* __restrict__ gf_tabs, const uint8_t* __restrict__ data,
     int k, int m, long long n, int bs, int splits,
@@ -380,7 +347,7 @@ __global__ void __launch_bounds__(256) fused_encode_crc_kernel(
 #pragma unroll
       for (int b = 0; b < 16; ++b) acc[b] = 0;
       for (int j = 0; j < k; ++j) {
-        const uint4 x = load16<kAligned>(data + j * n + col);
+        const uint4 x = *reinterpret_cast<const uint4*>(data + j * n + col);
         if (q == 0 && crc_inputs) regs[j * stride + slot] = crc_raw16(tabs, 0u, x);
         xor_packed(acc, gf + (q * k + j) * kGfRowWords, x);
       }
@@ -433,10 +400,7 @@ __global__ void crc_fold_kernel(const uint32_t* __restrict__ regs,
 // ---------------------------------------------------------------------------
 
 // Kernel ids of lz_resident.
-enum KernelId : int {
-  kFused = 0, kGfApplyVec = 1, kGfApplyByte = 2, kBlockCrc = 3,
-  kFusedShifted = 4, kBlockCrcShifted = 5,  // the kAligned = false instantiations
-};
+enum KernelId : int { kFused = 0, kGfApplyVec = 1, kGfApplyByte = 2, kBlockCrc = 3 };
 
 long long grid_for(long long units, int threads, long long cap) {
   long long g = (units + threads - 1) / threads;
@@ -517,21 +481,16 @@ extern "C" {
 int lz_resident(int kernel, int threads, int rows_in, int rows_out, int levels) {
   switch (kernel) {
     case kFused:
-      return resident_ctas(fused_encode_crc_kernel<true>, threads,
-                           fused_smem_bytes(rows_in, rows_out, threads, levels));
-    case kFusedShifted:
-      return resident_ctas(fused_encode_crc_kernel<false>, threads,
+      return resident_ctas(fused_encode_crc_kernel, threads,
                            fused_smem_bytes(rows_in, rows_out, threads, levels));
     case kGfApplyVec:
       return resident_ctas(gf_apply_kernel<true>, threads, gf_smem_bytes(rows_out, rows_in));
     case kGfApplyByte:
       return resident_ctas(gf_apply_kernel<false>, threads, gf_smem_bytes(rows_out, rows_in));
     case kBlockCrc:
-    case kBlockCrcShifted:
-      if (rows_in != kCrcSteps || rows_out != kCrcVecs) break;
-      return kernel == kBlockCrc
-                 ? resident_ctas(block_crc_kernel<true>, threads, crc_smem_bytes(threads, levels))
-                 : resident_ctas(block_crc_kernel<false>, threads, crc_smem_bytes(threads, levels));
+      if (rows_in == kCrcSteps && rows_out == kCrcVecs)
+        return resident_ctas(block_crc_kernel, threads, crc_smem_bytes(threads, levels));
+      break;
   }
   return -static_cast<int>(cudaErrorInvalidValue);
 }
@@ -558,12 +517,11 @@ int lz_gf_apply(const void* gf_tabs, const void* data, void* out, int w, int r,
 // most `resident` CTAs of `threads` threads, with slabs of 2^levels spans
 // (bs = splits * slab), into regs (nblocks * splits words), then the fold
 // with slab_tab = S^slab. One call launches both. steps and vecs are the
-// caller's kCrcSteps and kCrcVecs, checked. aligned: blocks starts on a
-// 16-byte boundary (else the shifted-load instantiation runs).
+// caller's kCrcSteps and kCrcVecs, checked.
 int lz_block_crcs(const void* blocks, long long nblocks, int threads, int splits,
                   int steps, int vecs, const void* crc_tabs, const void* level_tabs,
                   int levels, const void* slab_tab, unsigned int k_const, int resident,
-                  void* regs, void* out, int aligned, void* stream) {
+                  void* regs, void* out, void* stream) {
   if (steps != kCrcSteps || vecs != kCrcVecs) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const long long slabs = nblocks * splits;
@@ -571,16 +529,9 @@ int lz_block_crcs(const void* blocks, long long nblocks, int threads, int splits
   const long long n = (slabs + per - 1) / per;
   const long long grid = n < resident ? n : resident;
   auto* r = static_cast<uint32_t*>(regs);
-  const auto* in = static_cast<const uint8_t*>(blocks);
-  const auto* tabs = static_cast<const uint32_t*>(crc_tabs);
-  const auto* lvl = static_cast<const uint32_t*>(level_tabs);
-  const size_t smem = crc_smem_bytes(threads, levels);
-  if (aligned)
-    block_crc_kernel<true><<<static_cast<unsigned>(grid), threads, smem, s>>>(
-        in, slabs, tabs, lvl, levels, r);
-  else
-    block_crc_kernel<false><<<static_cast<unsigned>(grid), threads, smem, s>>>(
-        in, slabs, tabs, lvl, levels, r);
+  block_crc_kernel<<<static_cast<unsigned>(grid), threads, crc_smem_bytes(threads, levels), s>>>(
+      static_cast<const uint8_t*>(blocks), slabs, static_cast<const uint32_t*>(crc_tabs),
+      static_cast<const uint32_t*>(level_tabs), levels, r);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_fold(r, nblocks, splits, slab_tab, k_const, out,
@@ -591,14 +542,13 @@ int lz_block_crcs(const void* blocks, long long nblocks, int threads, int splits
 // each copying the tables once and walking slabs, then the fold of the
 // registers of the rows whose CRCs are returned: all k + m rows, or with
 // `expected` (a rebuild) the m output rows, compared into `ok`. crc_out
-// is (rows, n / bs) or (m, n / bs). aligned: data starts on a 16-byte
-// boundary (else the shifted-load instantiation runs).
+// is (rows, n / bs) or (m, n / bs).
 int lz_fused_encode_crc(const void* gf_tabs, const void* data, int k, int m,
                         long long n, int bs, int threads, int splits,
                         const void* crc_tabs, const void* level_tabs, int levels,
                         const void* slab_tab, unsigned int k_const, int resident,
                         void* parity, void* regs, void* crc_out,
-                        const void* expected, void* ok, int aligned, void* stream) {
+                        const void* expected, void* ok, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const int crc_inputs = expected == nullptr;
   const size_t smem = fused_smem_bytes(k, m, threads, levels);
@@ -606,8 +556,7 @@ int lz_fused_encode_crc(const void* gf_tabs, const void* data, int k, int m,
   const long long ctas = nb * splits;
   const long long grid = ctas < resident ? ctas : resident;
   auto* r = static_cast<uint32_t*>(regs);
-  const auto kernel = aligned ? fused_encode_crc_kernel<true> : fused_encode_crc_kernel<false>;
-  kernel<<<static_cast<unsigned>(grid), threads, smem, s>>>(
+  fused_encode_crc_kernel<<<static_cast<unsigned>(grid), threads, smem, s>>>(
       static_cast<const uint32_t*>(gf_tabs), static_cast<const uint8_t*>(data),
       k, m, n, bs, splits, static_cast<const uint32_t*>(crc_tabs),
       static_cast<const uint32_t*>(level_tabs), levels,

@@ -43,10 +43,8 @@ _GF_THREADS = 256  # CTA size of the GF apply kernel
 _CRC_STEPS, _CRC_VECS = 4, 2
 _CRC_SPANS = 128
 _VEC = 16  # bytes a thread loads per row and step
-# kernel ids of lz_resident (csrc/ec_kernels.cu: KernelId); the shifted
-# ones are the CRC kernels' instantiations for rows that start off a
-# 16-byte boundary (two aligned loads joined a vector)
-_FUSED, _GF_APPLY_VEC, _GF_APPLY_BYTE, _BLOCK_CRC, _FUSED_SHIFTED, _BLOCK_CRC_SHIFTED = range(6)
+# kernel ids of lz_resident (csrc/ec_kernels.cu: KernelId)
+_FUSED, _GF_APPLY_VEC, _GF_APPLY_BYTE, _BLOCK_CRC = range(4)
 
 
 def reset_launches() -> None:
@@ -98,6 +96,13 @@ def _stream(t: torch.Tensor) -> int:
 
 def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % _VEC == 0
+
+
+def _vector_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or for rows that start off a 16-byte boundary (a view such
+    as ``buf[1:].view(B, bs)``) an aligned copy: the CRC kernels load 16
+    bytes at a time."""
+    return t if _aligned(t) else t.clone()
 
 
 def _gf_dims(bigm: torch.Tensor, parts: torch.Tensor) -> tuple[int, int]:
@@ -220,18 +225,17 @@ def block_crcs(blocks: torch.Tensor, block_size: int = MFSBLOCKSIZE) -> torch.Te
     out = torch.empty(nblocks, dtype=torch.int32, device=dev)
     if nblocks == 0:
         return out
-    aligned = _aligned(blocks)
+    blocks = _vector_rows(blocks)
     _, splits, levels, crc_tab, level_tabs, slab_tab, k_const = (
         _crc_plan(block_size, _CRC_VECS * _VEC, _CRC_SPANS, dev))
-    resident = _resident(_BLOCK_CRC if aligned else _BLOCK_CRC_SHIFTED, _CRC_THREADS,
-                         _CRC_STEPS, _CRC_VECS, levels, dev)
+    resident = _resident(_BLOCK_CRC, _CRC_THREADS, _CRC_STEPS, _CRC_VECS, levels, dev)
     regs = torch.empty(nblocks * splits, dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         _launch("block_crc", lib.lz_block_crcs, blocks.data_ptr(), nblocks, _CRC_THREADS,
                 splits, _CRC_STEPS, _CRC_VECS, crc_tab.data_ptr(), level_tabs.data_ptr(),
                 levels, slab_tab.data_ptr(), k_const, resident, regs.data_ptr(), out.data_ptr(),
-                int(aligned), _stream(blocks))
+                _stream(blocks))
     LAUNCHES["block_crcs"] += 1
     return out
 
@@ -250,13 +254,13 @@ def _fused_launch(bigm, data, block_size, expected=None):
     ``expected`` (the lost parts' stored CRCs) the input rows' CRCs are
     skipped and the fold compares; returns (out rows, crcs of all rows or
     of the outputs, ok)."""
-    aligned = _aligned(data)
+    data = _vector_rows(data)
     w, (r, n) = bigm.shape[0] // 8, data.shape
     nb = n // block_size
     dev = data.device
     threads, splits, levels, crc_tab, level_tabs, slab_tab, k_const = (
         _crc_plan(block_size, _VEC, _CRC_THREADS, dev))
-    resident = _resident(_FUSED if aligned else _FUSED_SHIFTED, threads, r, w, levels, dev)
+    resident = _resident(_FUSED, threads, r, w, levels, dev)
     gf_tabs = _gf_tables_for(bigm)
     crc_inputs = expected is None
     rows = r + w
@@ -272,7 +276,7 @@ def _fused_launch(bigm, data, block_size, expected=None):
                 crc_tab.data_ptr(), level_tabs.data_ptr(), levels, slab_tab.data_ptr(),
                 k_const, resident, out.data_ptr(), regs.data_ptr(), crcs.data_ptr(),
                 None if crc_inputs else expected.data_ptr(),
-                None if crc_inputs else ok.data_ptr(), int(aligned), _stream(data))
+                None if crc_inputs else ok.data_ptr(), _stream(data))
     return out, crcs, ok
 
 

@@ -147,3 +147,12 @@ def test_registry_keeps_one_encoder_per_name_and_device():
     assert cuda_on_cpu is not get_encoder("cpu")
     bigm = np.array(torch_ec.encoding_bitmatrix(8, 4))
     assert get_encoder("cuda", "cpu")._matrix(bigm) is cuda_on_cpu._matrix(bigm.copy())
+
+
+@pytest.mark.parametrize("name", ["cpu", "sharded"])
+def test_registry_refuses_a_device_for_a_backend_that_takes_none(name):
+    """Only "cuda" (and "auto", which lands on it) runs on a named device:
+    naming one for another backend raises instead of handing back that
+    backend's one encoder."""
+    with pytest.raises(ValueError, match="takes no device"):
+        get_encoder(name, "cpu")

@@ -316,35 +316,6 @@ def test_emulated_block_crcs_match_pallas_and_golden(bs, count, grid, interpret_
         np.testing.assert_array_equal(np.asarray(pallas_ec.block_crcs(blocks, bs)), want)
 
 
-def _funnelshift_r(lo, hi, sh):
-    return ((int(hi) << 32 | int(lo)) >> (sh & 31)) & 0xFFFFFFFF
-
-
-def _load16_shifted(mem, addr):
-    """load16<false> of the kernels: the 16 bytes at ``addr`` (off a
-    16-byte boundary; index 0 of ``mem`` is on one) from the two aligned
-    runs that hold them, words selected by (addr >> 2) & 3 and joined
-    with funnel shifts."""
-    base = addr & ~15
-    assert base + 32 <= len(mem)  # reads nothing past the allocation
-    words = mem[base:base + 32].view("<u4")  # lo.x lo.y lo.z lo.w hi.x .. hi.w
-    w = [int(words[((addr >> 2) & 3) + i]) for i in range(5)]
-    sh = 8 * (addr & 3)
-    return np.array([_funnelshift_r(w[i], w[i + 1], sh) for i in range(4)],
-                    dtype="<u4").view(np.uint8)
-
-
-@pytest.mark.parametrize("offset", range(1, 16))
-def test_emulated_shifted_load_gives_the_bytes(offset):
-    """At every offset from a 16-byte boundary the joined words are the
-    16 bytes at the address, for each vector of a tensor ``buf[offset:]``
-    whose allocation (``mem``) ends on the 16-byte run that holds its last
-    byte: nothing past that run is read."""
-    mem = np.random.default_rng(offset).integers(0, 256, 16 * 10, dtype=np.uint8)
-    for addr in range(offset, offset + 16 * 9, 16):
-        np.testing.assert_array_equal(_load16_shifted(mem, addr), mem[addr:addr + 16])
-
-
 def test_gf_tables_follow_the_matrix_tensor():
     """The wrapper's tables are built once per matrix tensor and rebuilt
     after the tensor is written in place."""
