@@ -26,13 +26,27 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    the encoder registry's one object per name; the ``encode`` and
    ``block_crcs`` counters and the mesh-recover counter are read around
    it;
-6. times each kernel and its plain version with CUDA events, the CRC
+6. runs the chunkserver's rebuild path at ec(8,4) (the goal from
+   ``load_goal_config("10 fast : $ec(8,4)")``), 64 MiB chunks of 64 KiB
+   blocks, on disk: ``encode_with_checksums`` writes the twelve parts
+   into one ``ChunkStore`` per server (each card CRC checked against
+   zlib by the store), part 3 is deleted and rebuilt by ``rebuild_part``
+   with ``replicator_encoder``'s encoder (its file, bytes and CRC slots
+   against the originals), a degraded read-modify-write read of a short
+   chunk runs with part 3 missing (in the middle and at the zero-padded
+   tail, then with a wave-0 source failing so a fallback wave fires), and
+   an xor3 part and a std copy are rebuilt; the ``encode`` and
+   ``block_crcs`` counters are read around it, and it prints the
+   encoder the ladder chose, how many kernel calls got rows off a
+   16-byte boundary, and the host-clock split of ``rebuild_part``
+   (median of 5);
+7. times each kernel and its plain version with CUDA events, the CRC
    wrappers on rows off a 16-byte boundary, the encoder's write and
    one-part rebuild end to end (numpy in and out) at ec(8,4), and the
    ec(32,8) wide-stripe encode and rebuild on the mesh beside one card's
    encoder, and prints one JSON line per kernel and per path, the card,
    and a ``{"kernels": [...]}`` line;
-7. ends with ``{"ok": true, "device": {...}}``.
+8. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero.
 """
@@ -45,7 +59,9 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -71,6 +87,10 @@ SASS = {  # kernel: pattern of its (mangled) name in cuobjdump's listing
 }
 WIDE_K, WIDE_M = 32, 8  # the wide stripe of the multi-device path
 WIDE_LOST = [0, 5, 9, 16, 31, 33, 36, 39]  # eight parts of ec(32,8), data and parity
+SHIPPED_GOALS = "10 fast : $ec(8,4)"  # README.md's goals.cfg line
+SHORT_CHUNK = CHUNK - 3 * BS - 1000  # trailing parts short: zero-padded on read
+LOST = 3  # the part the rebuild phase loses
+RMW_BLOCKS = (5, 37)  # first block and block count of the degraded read
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
     "block_crcs": "lizardfs_tpu/ops/pallas_ec.py:166",
@@ -345,7 +365,10 @@ def main() -> int:
     # -- phase 4: the multi-device path over every visible card ----------
     wide = multi_device_path(chunk, st)
 
-    # -- phase 5: timing -------------------------------------------------
+    # -- phase 5: the chunkserver's rebuild path, on disk ----------------
+    rebuild_path(get_encoder("cuda"), card)
+
+    # -- phase 6: timing -------------------------------------------------
     def window_ms(fn, iters):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -594,6 +617,282 @@ def time_multi_device(wide: dict, card: str) -> None:
             "reps": 5, "devices": mesh.size if mesh else 1, "mesh": mesh and mesh.shape,
             "card": card,
         }))
+
+
+@dataclass
+class Addr:
+    host: str
+    port: int
+
+
+@dataclass
+class PartLoc:
+    """A part location as the master hands it out: wire part id, address."""
+
+    part_id: int
+    addr: Addr
+
+
+class StoreExecutor:
+    """Runs a read plan wave by wave against chunk stores in this process,
+    as the network executor runs it against chunkservers: ``stores`` maps
+    an address to its store; a store error or a piece whose CRC does not
+    match fails the part. Records the waves that ran and the host time of
+    the reads and of the plan's post-processing (recovery)."""
+
+    def __init__(self, stores):
+        self.stores = stores
+        self.waves: list[int] = []
+        self.read_s = self.post_s = 0.0
+
+    def __call__(self, plan, chunk_id, version, locations):
+        from lizardfs_tpu_torch.chunkserver.chunk_store import ChunkStoreError
+        from lizardfs_tpu_torch.ops import crc32
+        from lizardfs_tpu_torch.proto import status
+
+        t0 = time.perf_counter()
+        buffer = np.zeros(plan.buffer_size, dtype=np.uint8)
+        available: list[int] = []
+        unreadable: list[int] = []
+        for wave in range(max(op.wave for op in plan.read_operations) + 1):
+            self.waves.append(wave)
+            for op in (op for op in plan.read_operations if op.wave == wave):
+                try:
+                    addr, wire_part_id = locations[op.part]
+                    pieces = self.stores[addr].read(
+                        chunk_id, version, wire_part_id, op.request_offset, op.request_size)
+                    if any(crc32.crc32(p) != c for _, p, c in pieces):
+                        raise ChunkStoreError(status.CRC_ERROR, f"part {op.part}: piece CRC mismatch")
+                except (KeyError, ChunkStoreError):
+                    unreadable.append(op.part)
+                    require(plan.is_finishing_possible(unreadable), "the plan can still finish")
+                    continue
+                for off, piece, _crc in pieces:
+                    start = op.buffer_offset + off - op.request_offset
+                    buffer[start : start + len(piece)] = np.frombuffer(piece, np.uint8)
+                available.append(op.part)
+            if plan.is_reading_finished(available):
+                break
+        else:
+            raise RuntimeError("check failed: waves exhausted without enough parts")
+        t1 = time.perf_counter()
+        out = plan.postprocess(buffer, available)
+        self.read_s += t1 - t0
+        self.post_s += time.perf_counter() - t1
+        return out
+
+
+class Timed:
+    """An encoder or store whose named methods add their host time (with
+    every card synchronised after each call) to ``seconds``."""
+
+    def __init__(self, inner, *names):
+        self._inner, self._names = inner, names
+        self.seconds = {name: 0.0 for name in names}
+
+    def __getattr__(self, name):
+        fn = getattr(self._inner, name)
+        if name not in self._names:
+            return fn
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync_all()
+            self.seconds[name] += time.perf_counter() - t
+            return out
+
+        return timed
+
+
+def write_chunk_parts(stores, chunk_id, st, parts, length, crcs=None) -> list[PartLoc]:
+    """Write each part's real bytes (``part_length`` of a ``length``-byte
+    chunk) block by block into its server's store, with the block CRCs
+    ``crcs[p]`` where given (the card's: the store checks each against
+    zlib) and a host CRC for a short last piece. Returns the locations."""
+    from lizardfs_tpu_torch.core import geometry
+    from lizardfs_tpu_torch.ops import crc32
+    from lizardfs_tpu_torch.utils import striping
+
+    locs = []
+    for p, data in parts.items():
+        part_id = geometry.ChunkPartType(st, p).id
+        addr = Addr("127.0.0.1", 9400 + p)
+        store = stores[(addr.host, addr.port)]
+        store.create(chunk_id, 1, part_id)
+        real = data[: striping.part_length(st, p, length)]
+        for b in range(0, len(real), BS):
+            piece = real[b : b + BS]
+            crc = int(crcs[p][b // BS]) if crcs is not None and len(piece) == BS else crc32.crc32(piece)
+            store.write(chunk_id, 1, part_id, b // BS, 0, piece.tobytes(), crc)
+        locs.append(PartLoc(part_id, addr))
+    return locs
+
+
+def rebuild_path(configured, card: str) -> None:
+    """The chunkserver's rebuild path on disk, at ec(8,4) over 64 MiB
+    chunks of 64 KiB blocks: the parts written through the card's fused
+    kernel into one ``ChunkStore`` per server; part 3 lost and rebuilt by
+    ``rebuild_part``; the client's degraded read-modify-write read of a
+    short chunk, then with a wave-0 source failing; an xor3 part and a
+    std copy rebuilt. The ``encode`` and ``block_crcs`` counters are set
+    to 0 before the rebuilds and reads and read after them, beside a
+    count of the kernel wrappers' calls on rows off a 16-byte boundary
+    (the CRC wrappers copy those, the GF apply takes its byte path). Then
+    the host-clock split of ``rebuild_part`` (median of 5)."""
+    from lizardfs_tpu_torch.chunkserver import replicate
+    from lizardfs_tpu_torch.chunkserver.chunk_store import ChunkStore
+    from lizardfs_tpu_torch.core import geometry, plans
+    from lizardfs_tpu_torch.core.cs_stats import GLOBAL_STATS
+    from lizardfs_tpu_torch.ops import cuda_ec
+    from lizardfs_tpu_torch.runtime import faults
+    from lizardfs_tpu_torch.utils import striping
+
+    st = geometry.load_goal_config(SHIPPED_GOALS)[10].disk_slice().type
+    require(int(st) == int(geometry.ec_type(K, M)), f"the shipped goal is ec(8,4): {st!r}")
+    encoder = replicate.replicator_encoder(configured)
+    offset_rows = [0]  # wrapper calls given rows off a 16-byte boundary
+    aligned = cuda_ec._aligned
+
+    def counted(t):
+        ok = aligned(t)
+        offset_rows[0] += not ok
+        return ok
+
+    rng = np.random.default_rng(SEED + 1)
+    chunk = rng.integers(0, 256, CHUNK, dtype=np.uint8)
+    short = rng.integers(0, 256, SHORT_CHUNK, dtype=np.uint8)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        stores = {("127.0.0.1", 9400 + p): ChunkStore(f"{root}/cs{p}") for p in range(K + M)}
+        # 1. the parts of both chunks, through the fused kernel
+        t0 = time.perf_counter()
+        located = {}
+        for chunk_id, data in ((1, chunk), (2, short)):
+            stripe = np.stack(striping.padded_data_parts(data, K)[0])
+            parity, dcrc, pcrc = configured.encode_with_checksums(K, M, stripe, BS)
+            parts = dict(enumerate(list(stripe) + list(parity)))
+            located[chunk_id] = (parts, dcrc, write_chunk_parts(
+                stores, chunk_id, st, parts, len(data), np.concatenate([dcrc, pcrc])))
+        print(f"rebuild phase: wrote 2 x {K + M} parts in {time.perf_counter() - t0:.3f} s")
+        parts, dcrc, locs = located[1]
+        lost_id = geometry.ChunkPartType(st, LOST).id
+        stores[("127.0.0.1", 9400 + LOST)].delete(1, 1, lost_id)
+        sources = [loc for loc in locs if loc.part_id != lost_id]
+
+        cuda_ec.reset_launches()
+        cuda_ec._aligned = counted  # read by the CRC wrappers' copy and the GF byte path
+        try:
+            t0 = time.perf_counter()
+            # 2. rebuild part 3 into a fresh store
+            target = ChunkStore(f"{root}/rebuilt")
+            run = StoreExecutor(stores)
+            replicate.rebuild_part(target, 1, 1, lost_id, sources, run, encoder)
+            check_rebuilt(target, 1, lost_id, parts[LOST], dcrc[LOST])
+
+            # 3. the degraded read (the client's read-modify-write shape) of
+            # the short chunk with part 3 missing: in the middle, and over
+            # the tail where the trailing parts are short
+            sparts, _, slocs = located[2]
+            stores[("127.0.0.1", 9400 + LOST)].delete(2, 1, lost_id)
+            by_part = {geometry.ChunkPartType.from_id(l.part_id).part:
+                       ((l.addr.host, l.addr.port), l.part_id) for l in slocs if l.part_id != lost_id}
+            nstripes = -(-SHORT_CHUNK // (K * BS))
+            for first, count in (RMW_BLOCKS, (nstripes - RMW_BLOCKS[1], RMW_BLOCKS[1])):
+                degraded_read(st, short, first, count, by_part, stores, configured,
+                              GLOBAL_STATS, plans, striping)
+            # 4. the same read with a wave-0 source failing: a fallback wave
+            # (the rule's op pattern names the chunk: its first read fails)
+            faults.arm(f"chunkserver:disk_pread:{2:016X}* error,limit=1")
+            try:
+                waves = degraded_read(st, short, *RMW_BLOCKS, by_part, stores, configured,
+                                      GLOBAL_STATS, plans, striping)
+                require(faults.fired_total() == 1 and max(waves) >= 1,
+                        f"a wave-0 source failed and a fallback wave ran: waves {waves}")
+            finally:
+                faults.clear()
+
+            # 5. an xor3 part and a std copy, through the same rebuild_part
+            for chunk_id, sl, lost in ((3, geometry.xor_type(3), 3),
+                                       (4, geometry.SliceType(geometry.STANDARD), 0)):
+                xparts = striping.split_chunk(chunk, sl, configured)
+                xlocs = write_chunk_parts(stores, chunk_id, sl, xparts, CHUNK)
+                xid = geometry.ChunkPartType(sl, lost).id
+                if not sl.is_standard:
+                    stores[("127.0.0.1", 9400 + lost)].delete(chunk_id, 1, xid)
+                    xlocs = [loc for loc in xlocs if loc.part_id != xid]
+                replicate.rebuild_part(target, chunk_id, 1, xid, xlocs, StoreExecutor(stores),
+                                       encoder)
+                check_rebuilt(target, chunk_id, xid, xparts[lost], None)
+            sync_all()
+        finally:
+            cuda_ec._aligned = aligned
+        launches = dict(cuda_ec.LAUNCHES)
+        print(f"rebuild path: {time.perf_counter() - t0:.3f} s, encoder {encoder.name}, "
+              f"launches {json.dumps(launches)}, offset rows {offset_rows[0]}")
+        for name in ("encode", "block_crcs"):
+            require(launches[name] >= 1, f"{name} launched on the rebuild path")
+
+        # the host-clock split of one part's rebuild, median of 5
+        splits = collections.defaultdict(list)
+        for _ in range(WINDOWS):
+            target.delete(1, 1, lost_id)
+            timed_enc = Timed(encoder, "recover", "checksum")
+            timed_store = Timed(target, "create", "write")
+            run = StoreExecutor(stores)
+            t = time.perf_counter()
+            replicate.rebuild_part(timed_store, 1, 1, lost_id, sources, run, timed_enc)
+            splits["rebuild_part_ms"].append((time.perf_counter() - t) * 1e3)
+            splits["plan_read_ms"].append(run.read_s * 1e3)
+            splits["recover_ms"].append(timed_enc.seconds["recover"] * 1e3)
+            splits["postprocess_ms"].append(run.post_s * 1e3)
+            splits["checksum_ms"].append(timed_enc.seconds["checksum"] * 1e3)
+            splits["store_write_ms"].append(sum(timed_store.seconds.values()) * 1e3)
+        check_rebuilt(target, 1, lost_id, parts[LOST], dcrc[LOST])
+    print(json.dumps({"path": "rebuild_part_ec8_4_64MiB_part3", "reps": WINDOWS,
+                      **{k: float(np.median(v)) for k, v in splits.items()},
+                      "encoder": encoder.name, "card": card}))
+
+
+def check_rebuilt(store, chunk_id, part_id, want, want_crcs) -> None:
+    """The rebuilt part tests clean, holds ``want``'s first
+    ``number_of_blocks_in_part`` blocks, and (where given) its CRC slots
+    hold ``want_crcs``."""
+    from lizardfs_tpu_torch.chunkserver.chunk_store import HEADER_SIZE, SIGNATURE_SIZE
+    from lizardfs_tpu_torch.core import geometry
+
+    nblocks = geometry.number_of_blocks_in_part(geometry.ChunkPartType.from_id(part_id))
+    cf = store.get(chunk_id, part_id)
+    require(cf is not None and store.test_part(cf), f"rebuilt part {part_id} tests clean")
+    with open(cf.path, "rb") as f:
+        raw = f.read()
+    require(raw[HEADER_SIZE:] == want[: nblocks * BS].tobytes(),
+            f"rebuilt part {part_id} of chunk {chunk_id}: bytes")
+    if want_crcs is not None:
+        slots = np.frombuffer(raw[SIGNATURE_SIZE : SIGNATURE_SIZE + 4 * nblocks], ">u4")
+        require((slots == want_crcs).all(), f"rebuilt part {part_id}: CRC slots = the write's")
+
+
+def degraded_read(st, chunk, first, count, by_part, stores, encoder, stats, plans, striping):
+    """The client's read-modify-write read of stripes [first, first+count)
+    of ``chunk`` (every data part wanted, from the parts in ``by_part``),
+    byte for byte against the chunk. Returns the waves that ran."""
+    d = st.data_parts
+    wanted = list(range(d))
+    planner = plans.SliceReadPlanner(
+        st, list(by_part), scores={p: stats.score(a) for p, (a, _) in by_part.items()},
+        encoder=encoder)
+    require(planner.is_readable(wanted), "the degraded read is readable")
+    part_sizes = {p: striping.part_length(st, p, len(chunk)) for p in range(st.expected_parts)}
+    plan = planner.build_plan(wanted, first, count, part_sizes)
+    run = StoreExecutor(stores)
+    buf = run(plan, 2, 1, by_part)
+    bps = count * BS
+    region = striping.assemble_chunk({p: buf[p * bps : (p + 1) * bps] for p in wanted}, st, d * bps)
+    want = np.zeros(d * bps, np.uint8)
+    piece = chunk[first * d * BS : (first + count) * d * BS]
+    want[: len(piece)] = piece
+    require(np.array_equal(region, want), f"degraded read of stripes {first}+{count}")
+    return run.waves
 
 
 if __name__ == "__main__":

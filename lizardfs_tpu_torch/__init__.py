@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the lizardfs-tpu erasure-coding data plane.
 
 The package mirrors the layout of :mod:`lizardfs_tpu` (``ops/``,
-``core/``, ``utils/``, ``models/``) and imports nothing from it. Entry
+``core/``, ``utils/``, ``models/``, ``parallel/``, ``chunkserver/``,
+``proto/``, ``runtime/``) and imports nothing from it. Entry
 points run on ``cuda:0`` unless the caller passes ``device="cpu"``; on
 a CPU tensor every kernel wrapper runs its plain PyTorch version.
 """

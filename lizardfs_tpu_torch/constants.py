@@ -16,6 +16,10 @@ MFSBLOCKSINCHUNK = 1024
 # One chunk: unit of replication / erasure coding (64 MiB).
 MFSCHUNKSIZE = MFSBLOCKSIZE * MFSBLOCKSINCHUNK
 
+# Header of a chunk part file on disk (signature 1 KiB + CRC table 4 KiB);
+# the chunk store's layout (chunkserver/chunk_store.py).
+MFSHDRSIZE = 4 * 1024 + 1024
+
 # CRC32 polynomial (reflected), identical to zlib's crc32
 # (MFSCommunication.h:81).
 CRC_POLY = 0xEDB88320

@@ -1,1 +1,1 @@
-"""ChunkEncoder boundary and slice geometry of the port."""
+"""ChunkEncoder boundary, slice geometry and goals, and read planning of the port."""

@@ -220,6 +220,13 @@ class CudaChunkEncoder(ChunkEncoder):
         torch.from_numpy(out).copy_(torch_ec.xor_reduce(self._stage(parts)))
 
 
+class MeshUnavailable(RuntimeError):
+    """The sharded encoder's refusal: its switch is off
+    (``LZ_SHARDED_RECOVERY=0``) or fewer than two cards are visible.
+    Callers that fall back to one card catch this type only, so a
+    kernel's build or launch error still surfaces."""
+
+
 class ShardedCudaChunkEncoder(CudaChunkEncoder):
     """Mesh-sharded wide-stripe backend, the counterpart of the JAX
     package's ``ShardedTpuChunkEncoder``: ``recover`` rides the mesh
@@ -231,18 +238,20 @@ class ShardedCudaChunkEncoder(CudaChunkEncoder):
     switch is read at call time).
 
     With no mesh it needs two or more cards and builds :func:`make_mesh`
-    over all of them; an explicit mesh of any size is taken as it is.
+    over all of them; an explicit mesh of any size is taken as it is. The
+    constructor's two refusals (switch off, fewer than two cards) raise
+    :class:`MeshUnavailable`.
     """
 
     name = "sharded"
 
     def __init__(self, mesh=None):
         if not recovery.enabled():
-            raise RuntimeError("sharded recovery disabled (LZ_SHARDED_RECOVERY=0)")
+            raise MeshUnavailable("sharded recovery disabled (LZ_SHARDED_RECOVERY=0)")
         if mesh is None:
             cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
             if cards < 2:
-                raise RuntimeError(f"mesh-sharded recovery needs >= 2 cards, have {cards}")
+                raise MeshUnavailable(f"mesh-sharded recovery needs >= 2 cards, have {cards}")
             mesh = sharded.make_mesh()
         super().__init__(mesh.devices.flat[0])
         self.mesh = mesh
@@ -303,7 +312,7 @@ def get_encoder(name: str | None = None, device=None) -> ChunkEncoder:
         if device is None:
             try:
                 return get_encoder("sharded")
-            except RuntimeError:
+            except MeshUnavailable:
                 pass
         name = "cuda"
     if name not in ("cpu", "cuda", "sharded"):

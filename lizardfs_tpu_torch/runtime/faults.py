@@ -1,0 +1,541 @@
+"""Deterministic, seeded fault injection at the system's choke points.
+
+The port's copy of the JAX package's ``runtime/faults.py``, whole: the
+same grammar, sites and decisions, with its own rule set (arming one
+package's rules leaves the other's untouched). Tests pin the two
+together.
+
+Every failure path in the tree used to be validated by a one-off test
+(a SIGKILL here, a frozen shadow there); the only injectable fault was
+the ``debug_read_delay_ms`` chunkserver tweak. This module generalizes
+that into a first-class framework (the analog of the reference's
+``SLOW_CHUNK_OPERATIONS``-style debug hooks and its system-test fault
+drills, tests/tools/lizardfs.sh): a seeded rule set, parsed from the
+``LZ_FAULTS`` environment spec or armed live over the admin channel,
+consulted at a handful of natural choke points:
+
+  ``frame_send`` / ``frame_recv``  proto/framing message boundaries
+                                   (op = message class name)
+  ``disk_pread`` / ``disk_pwrite`` chunkserver/chunk_store block IO
+                                   (op = "<chunk_id:016X>:<part_id>")
+  ``dial``                         outbound connects: client data plane,
+                                   RPC links, pooled chunkserver conns
+                                   (op = "rpc"|"cs"|..., peer = host:port)
+  ``serve_read``                   chunkserver asyncio read path (the
+                                   ``debug_read_delay_ms`` alias site)
+  ``http_recv`` / ``http_send``    S3 gateway HTTP framing boundaries
+                                   (op = method on recv, S3 op on send)
+
+Spec grammar (whitespace-tolerant)::
+
+    LZ_FAULTS = [ "seed=" N ";" ] rule ( ";" rule )*
+    rule      = match SP action
+    match     = role ":" site [ ":" op [ ":" peer ] ]   # fnmatch patterns
+    action    = kind [ "=" value ] ( "," key "=" val )*
+
+Actions:
+
+  ``delay=MS``      stall MS milliseconds at the point
+  ``drop``          abort the connection / fail the op (ConnectionResetError)
+  ``error[=NAME]``  raise a status error (proto.status name or int; disk
+                    sites surface it as a ChunkStoreError, frame sites as
+                    a connection reset). Default EIO.
+  ``flip``          flip one payload bit (frame bodies; disk_pread data
+                    post-CRC-verify so the *receiver* catches it;
+                    disk_pwrite data pre-CRC-store = latent corruption)
+  ``short``         truncate: a partial frame then disconnect, a short
+                    read, or a written block whose CRC slot is stale
+
+Keys: ``p=0.5`` fire probability (default 1), ``limit=N`` max fires
+(default unlimited), ``after=N`` skip the first N matches.
+
+Example::
+
+    LZ_FAULTS="seed=42; chunkserver:disk_pread flip,limit=1; \
+               client:frame_send:CltocsWrite* delay=40,p=0.25"
+
+Determinism: every probabilistic draw (fire/skip, flip bit position)
+comes from a per-rule ``random.Random`` seeded from the global seed and
+the rule's index — the same spec plus the same sequence of match calls
+yields the same decisions, so a failing chaos schedule replays exactly
+from its printed seed.
+
+Kill-switch discipline (the LZ_WRITE_WINDOW / LZ_SHM_RING contract):
+with ``LZ_FAULTS`` unset and no rules armed, :data:`ACTIVE` is False and
+every instrumented site reduces to one module-attribute check — zero
+added syscalls, zero behavior change, byte-identical output. While any
+rule is armed, native fast paths (which cannot be instrumented from
+Python) stand down so every byte flows through hookable code; this is a
+documented behavior change *of the armed state only*.
+
+Role resolution: the process-level role (set by each daemon's
+``__main__`` entry point, or ``LZ_ROLE``) is the default; daemons
+additionally scope every inbound connection's handling task via
+:func:`role_scope`, so in-process multi-daemon tests still attribute
+server-side fires correctly. Disk sites pass ``role="chunkserver"``
+explicitly — a chunk store only ever belongs to one.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import fnmatch
+import os
+import random
+import threading
+import time
+
+# site names wired in the tree (kept here so tools/tests can enumerate)
+SITES = (
+    "frame_send", "frame_recv", "disk_pread", "disk_pwrite", "dial",
+    "serve_read", "http_recv", "http_send",
+)
+
+ACTIONS = ("delay", "drop", "error", "flip", "short")
+
+#: fast-path flag: instrumented sites check this ONE module attribute
+#: before doing anything else. False <=> zero overhead, zero change.
+ACTIVE: bool = False
+
+_LOCK = threading.Lock()
+_PROCESS_ROLE = os.environ.get("LZ_ROLE", "client")
+_role_var: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "lz_fault_role", default=None
+)
+
+# bounded fire log: (wall time, role, site, op, peer, action, rule text).
+# Surfaced by the `faults` admin command and folded into health
+# snapshots so incident output NAMES the injected fault.
+_EVENTS: collections.deque = collections.deque(maxlen=256)
+
+# role -> Metrics registry for faults_injected{site,action} counters
+_METRICS: dict[str, object] = {}
+
+
+class FaultSpecError(ValueError):
+    pass
+
+
+class Decision:
+    """What one matched rule asks the site to do. Sites interpret the
+    action in site-appropriate terms (see module docstring)."""
+
+    __slots__ = ("action", "ms", "code", "rule")
+
+    def __init__(self, action: str, ms: float, code: int, rule: "FaultRule"):
+        self.action = action
+        self.ms = ms
+        self.code = code
+        self.rule = rule
+
+
+class FaultRule:
+    __slots__ = (
+        "role", "site", "op", "peer", "action", "ms", "code", "prob",
+        "limit", "after", "alias", "matched", "fired", "_rng",
+    )
+
+    def __init__(self, role, site, op, peer, action, ms=0.0, code=0,
+                 prob=1.0, limit=0, after=0, alias=None):
+        self.role = role or "*"
+        self.site = site or "*"
+        self.op = op or "*"
+        self.peer = peer or "*"
+        self.action = action
+        self.ms = ms
+        self.code = code
+        self.prob = prob
+        self.limit = limit  # 0 = unlimited
+        self.after = after
+        self.alias = alias  # set for tweak-armed rules (one per alias)
+        self.matched = 0
+        self.fired = 0
+        self._rng = random.Random(0)
+
+    def seed(self, global_seed: int, index: int) -> None:
+        # distinct, reproducible stream per rule position
+        self._rng = random.Random((global_seed * 0x9E3779B9 + index) & 0xFFFFFFFF)
+
+    def matches(self, role: str, site: str, op: str, peer: str) -> bool:
+        return (
+            fnmatch.fnmatchcase(site, self.site)
+            and fnmatch.fnmatchcase(role, self.role)
+            and fnmatch.fnmatchcase(op, self.op)
+            and fnmatch.fnmatchcase(peer, self.peer)
+        )
+
+    def draw(self) -> bool:
+        """Deterministic fire/skip decision for one match."""
+        self.matched += 1
+        if self.matched <= self.after:
+            return False
+        if self.limit and self.fired >= self.limit:
+            return False
+        if self.prob < 1.0 and self._rng.random() >= self.prob:
+            return False
+        self.fired += 1
+        return True
+
+    def rand_index(self, n: int) -> int:
+        """Deterministic index draw (flip bit positions)."""
+        return self._rng.randrange(n) if n > 0 else 0
+
+    def text(self) -> str:
+        out = f"{self.role}:{self.site}:{self.op}:{self.peer} {self.action}"
+        if self.action == "delay":
+            out += f"={self.ms:g}"
+        elif self.action == "error" and self.code:
+            out += f"={self.code}"
+        mods = []
+        if self.prob < 1.0:
+            mods.append(f"p={self.prob:g}")
+        if self.limit:
+            mods.append(f"limit={self.limit}")
+        if self.after:
+            mods.append(f"after={self.after}")
+        return out + ("," + ",".join(mods) if mods else "")
+
+    def to_dict(self) -> dict:
+        return {
+            "rule": self.text(), "action": self.action,
+            "matched": self.matched, "fired": self.fired,
+            "limit": self.limit, "alias": self.alias,
+        }
+
+
+def _parse_code(raw: str) -> int:
+    from lizardfs_tpu_torch.proto import status as st
+
+    try:
+        return int(raw, 0)
+    except ValueError:
+        code = getattr(st, raw.strip().upper(), None)
+        if not isinstance(code, int):
+            raise FaultSpecError(f"unknown status {raw!r}") from None
+        return code
+
+
+def parse_rule(text: str, alias: str | None = None) -> FaultRule:
+    """``role:site[:op[:peer]] action[=v][,k=v...]`` -> FaultRule."""
+    parts = text.strip().split(None, 1)
+    if len(parts) != 2:
+        raise FaultSpecError(f"rule needs 'match action': {text!r}")
+    match, action_text = parts
+    # maxsplit=3: the peer pattern is the REST of the match — it may
+    # itself contain colons (host:port, the documented dial form)
+    fields = (match.split(":", 3) + ["*"] * 4)[:4]
+    tokens = [t.strip() for t in action_text.split(",") if t.strip()]
+    kind, _, value = tokens[0].partition("=")
+    kind = kind.strip().lower()
+    if kind not in ACTIONS:
+        raise FaultSpecError(f"unknown action {kind!r} in {text!r}")
+    ms, code = 0.0, 0
+    if kind == "delay":
+        try:
+            ms = float(value or "0")
+        except ValueError:
+            raise FaultSpecError(f"bad delay {value!r}") from None
+        if ms <= 0:
+            raise FaultSpecError("delay needs =MS > 0")
+    elif kind == "error":
+        code = _parse_code(value) if value else 0
+    prob, limit, after = 1.0, 0, 0
+    for tok in tokens[1:]:
+        key, _, val = tok.partition("=")
+        key = key.strip().lower()
+        try:
+            if key == "p":
+                prob = float(val)
+                if not 0.0 < prob <= 1.0:
+                    raise ValueError
+            elif key == "limit":
+                limit = int(val)
+            elif key == "after":
+                after = int(val)
+            else:
+                raise FaultSpecError(f"unknown key {key!r} in {text!r}")
+        except ValueError:
+            raise FaultSpecError(f"bad value {tok!r} in {text!r}") from None
+    return FaultRule(*fields, kind, ms=ms, code=code, prob=prob,
+                     limit=limit, after=after, alias=alias)
+
+
+def parse_spec(spec: str) -> tuple[int, list[FaultRule]]:
+    seed = 0
+    rules: list[FaultRule] = []
+    for item in spec.split(";"):
+        item = item.strip()
+        if not item:
+            continue
+        if item.lower().startswith("seed=") and ":" not in item:
+            try:
+                seed = int(item[5:], 0)
+            except ValueError:
+                raise FaultSpecError(f"bad seed {item!r}") from None
+            continue
+        rules.append(parse_rule(item))
+    return seed, rules
+
+
+class FaultSet:
+    def __init__(self, seed: int = 0, rules: list[FaultRule] | None = None):
+        self.seed = seed
+        self.rules: list[FaultRule] = []
+        self._next_index = 0
+        for rule in rules or ():
+            self.add(rule)
+
+    def add(self, rule: FaultRule) -> None:
+        rule.seed(self.seed, self._next_index)
+        self._next_index += 1
+        self.rules.append(rule)
+
+    def match(self, role: str, site: str, op: str, peer: str):
+        for rule in self.rules:
+            if rule.matches(role, site, op, peer) and rule.draw():
+                return rule
+        return None
+
+
+_SET = FaultSet()
+
+
+def _refresh_active() -> None:
+    global ACTIVE
+    ACTIVE = bool(_SET.rules)
+
+
+def _load_env() -> None:
+    spec = os.environ.get("LZ_FAULTS", "")
+    if not spec.strip():
+        return
+    seed, rules = parse_spec(spec)
+    install_set(FaultSet(seed, rules))
+
+
+def install(spec: str, seed: int | None = None) -> None:
+    """Replace the process rule set from a spec string (the LZ_FAULTS
+    grammar; a leading ``seed=N`` item or the ``seed`` argument seeds
+    the deterministic streams)."""
+    spec_seed, rules = parse_spec(spec)
+    install_set(FaultSet(seed if seed is not None else spec_seed, rules))
+
+
+def install_set(fault_set: FaultSet) -> None:
+    global _SET
+    with _LOCK:
+        _SET = fault_set
+        _refresh_active()
+
+
+def arm(rule_text: str, alias: str | None = None) -> FaultRule:
+    """Add one rule to the live set. ``alias`` names a replaceable slot
+    (the ``debug_read_delay_ms`` tweak arms through one): arming the
+    same alias again replaces the previous rule instead of stacking."""
+    rule = parse_rule(rule_text, alias=alias)
+    with _LOCK:
+        if alias is not None:
+            _SET.rules = [r for r in _SET.rules if r.alias != alias]
+        _SET.add(rule)
+        _refresh_active()
+    return rule
+
+
+def clear(alias: str | None = None) -> None:
+    """Drop every rule (or just an alias's) and the fire log."""
+    global _SET
+    with _LOCK:
+        if alias is None:
+            _SET = FaultSet(_SET.seed)
+            _EVENTS.clear()
+        else:
+            _SET.rules = [r for r in _SET.rules if r.alias != alias]
+        _refresh_active()
+
+
+def describe() -> dict:
+    """Admin/`faults` view: seed, rules with fire counts, recent events."""
+    with _LOCK:
+        return {
+            "active": ACTIVE,
+            "seed": _SET.seed,
+            "role": _PROCESS_ROLE,
+            "rules": [r.to_dict() for r in _SET.rules],
+            "events": list(_EVENTS),
+        }
+
+
+def fired_total() -> int:
+    with _LOCK:
+        return sum(r.fired for r in _SET.rules)
+
+
+# --- role plumbing ---------------------------------------------------------
+
+
+def set_role(role: str) -> None:
+    """Process-level default role (daemon ``__main__`` entry points)."""
+    global _PROCESS_ROLE
+    _PROCESS_ROLE = role
+
+
+def current_role() -> str:
+    return _role_var.get() or _PROCESS_ROLE
+
+
+@contextlib.contextmanager
+def role_scope(role: str):
+    """Scope the fault role to the current task tree (a daemon's inbound
+    connection handler; context propagates into to_thread workers)."""
+    token = _role_var.set(role)
+    try:
+        yield
+    finally:
+        _role_var.reset(token)
+
+
+# --- metrics ---------------------------------------------------------------
+
+
+def attach_metrics(role: str, metrics) -> None:
+    """Register a role's Metrics registry: fires increment its
+    ``faults_injected{site,action}`` labeled counter family."""
+    _METRICS[role] = metrics
+
+
+def _count_fire(role: str, site: str, action: str) -> None:
+    metrics = _METRICS.get(role)
+    if metrics is None and _METRICS:
+        # in-process fallbacks (e.g. a bare tool) land on any registry
+        # rather than vanishing
+        metrics = next(iter(_METRICS.values()))
+    if metrics is None:
+        return
+    try:
+        metrics.labeled_counter(
+            "faults_injected", {"site": site, "action": action},
+            help="injected faults fired, by choke-point site and action",
+        ).inc()
+    except Exception:  # pragma: no cover — metrics must never hurt faults
+        pass
+
+
+# --- the decision point ----------------------------------------------------
+
+
+def decide(site: str, op: str = "", peer: str = "",
+           role: str | None = None) -> Decision | None:
+    """Match the live rule set; None = proceed untouched. Callers gate
+    on :data:`ACTIVE` first, so this never runs on the clean path."""
+    role = role if role is not None else current_role()
+    with _LOCK:
+        rule = _SET.match(role, site, op, peer)
+        if rule is None:
+            return None
+        _EVENTS.append({
+            "t": time.time(), "role": role, "site": site, "op": op,
+            "peer": peer, "action": rule.action, "rule": rule.text(),
+        })
+    _count_fire(role, site, rule.action)
+    return Decision(rule.action, rule.ms, rule.code, rule)
+
+
+def flip_bit(data: bytes | bytearray, rule: FaultRule,
+             lo: int = 0, hi: int | None = None) -> bytes:
+    """Flip one deterministic bit of ``data[lo:hi]``."""
+    hi = len(data) if hi is None else hi
+    if hi <= lo:
+        return bytes(data)
+    out = bytearray(data)
+    pos = lo + rule.rand_index(hi - lo)
+    out[pos] ^= 1 << rule.rand_index(8)
+    return bytes(out)
+
+
+async def dial_point(op: str, peer: str, role: str | None = None) -> None:
+    """The one outbound-connect choke point (pool dials, RPC links,
+    client data-plane connects all call this): delay sleeps before the
+    dial, every other action refuses the connection."""
+    import asyncio
+
+    dec = decide("dial", op=op, peer=peer, role=role)
+    if dec is None:
+        return
+    if dec.action == "delay":
+        await asyncio.sleep(dec.ms / 1e3)
+        return
+    raise ConnectionRefusedError(
+        f"fault injected: {dec.action} dial {peer}"
+    )
+
+
+async def async_point(site: str, op: str = "", peer: str = "",
+                      role: str | None = None) -> None:
+    """Generic async choke point (e.g. the chunkserver's ``serve_read``
+    path): delay sleeps, anything else aborts the exchange."""
+    import asyncio
+
+    dec = decide(site, op=op, peer=peer, role=role)
+    if dec is None:
+        return
+    if dec.action == "delay":
+        await asyncio.sleep(dec.ms / 1e3)
+        return
+    raise ConnectionResetError(f"fault injected: {dec.action} {site} {op}")
+
+
+# --- frame-site helper (proto/framing) -------------------------------------
+
+# encoded frame layout: 8-byte header + 1 version byte + body
+_FRAME_BODY_OFF = 9
+
+
+async def frame_point(site: str, name: str, data: bytes,
+                      peer: str = "", writer=None) -> bytes:
+    """Apply a matched decision at a frame boundary. Returns the
+    (possibly mangled) bytes to proceed with; raises ConnectionResetError
+    for drop/error/short; sleeps for delay."""
+    import asyncio
+
+    dec = decide(site, op=name, peer=peer)
+    if dec is None:
+        return data
+    if dec.action == "delay":
+        await asyncio.sleep(dec.ms / 1e3)
+        return data
+    if dec.action == "flip":
+        # flip inside the body so framing survives and CONTENT corrupts
+        # (decode error or payload CRC mismatch at the receiver)
+        if site == "frame_send" and len(data) > _FRAME_BODY_OFF:
+            return flip_bit(data, dec.rule, lo=_FRAME_BODY_OFF)
+        if site == "frame_recv" and len(data) > 1:
+            # skip the leading protocol-version byte: like the send
+            # side, the flip must corrupt CONTENT (decode error / CRC
+            # mismatch), not turn into a version-negotiation failure
+            return flip_bit(data, dec.rule, lo=1)
+        return data
+    if dec.action == "short" and site == "frame_send" and writer is not None:
+        # torn write: half a frame on the wire, then the peer sees EOF
+        writer.write(data[: max(len(data) // 2, 1)])
+        try:
+            await asyncio.wait_for(writer.drain(), 5.0)
+        except (ConnectionError, OSError, asyncio.TimeoutError):
+            pass
+        writer.close()
+        raise ConnectionResetError(f"fault injected: short {name}")
+    # drop / error / recv-side short: kill the exchange
+    if writer is not None:
+        writer.close()
+    raise ConnectionResetError(
+        f"fault injected: {dec.action} {site} {name}"
+    )
+
+
+# parse the environment spec once at import (the autoload path real
+# multi-process chaos clusters use; tests drive install()/arm() direct)
+try:
+    _load_env()
+except FaultSpecError as e:  # bad spec must be loud, not silent
+    raise SystemExit(f"LZ_FAULTS: {e}") from None

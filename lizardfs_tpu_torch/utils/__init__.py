@@ -1,1 +1,1 @@
-"""Chunk striping helpers of the port."""
+"""Chunk striping and test-data helpers of the port."""

@@ -22,22 +22,29 @@ from lizardfs_tpu_torch.core import geometry
 from lizardfs_tpu_torch.core.encoder import ChunkEncoder, get_encoder
 
 
-def padded_data_parts(data: np.ndarray, d: int) -> tuple[list[np.ndarray], int]:
+def padded_data_parts(
+    data: np.ndarray, d: int, out: np.ndarray | None = None
+) -> tuple[list[np.ndarray], int]:
     """Split chunk bytes into d zero-padded equal part streams.
 
     Returns (parts, part_len) where part_len covers ceil(blocks/d) blocks.
+    ``out`` (C-contiguous uint8 of shape (d, part_len)) receives the
+    streams, and the parts are its rows.
     """
     nbytes = data.shape[0]
     nblocks = (nbytes + MFSBLOCKSIZE - 1) // MFSBLOCKSIZE
     blocks_per_part = (nblocks + d - 1) // d
     part_len = blocks_per_part * MFSBLOCKSIZE
+    stacked = np.empty((d, part_len), dtype=np.uint8) if out is None else out
+    if stacked.shape != (d, part_len) or not stacked.flags.c_contiguous:
+        raise ValueError(f"out must be C-contiguous of shape {(d, part_len)}")
     # pad to the full stripe grid, then one strided copy: block i -> part
     # i % d, slot i // d
     full = np.zeros(d * blocks_per_part * MFSBLOCKSIZE, dtype=np.uint8)
     full[:nbytes] = data
     grid = full.reshape(blocks_per_part, d, MFSBLOCKSIZE)
-    stacked = np.ascontiguousarray(grid.transpose(1, 0, 2))
-    return [stacked[p].reshape(part_len) for p in range(d)], part_len
+    stacked.reshape(d, blocks_per_part, MFSBLOCKSIZE)[...] = grid.transpose(1, 0, 2)
+    return list(stacked), part_len
 
 
 def split_chunk(
@@ -80,20 +87,29 @@ def assemble_chunk(
     data_parts: dict[int, np.ndarray],
     slice_type: geometry.SliceType,
     chunk_length: int,
+    out: np.ndarray | None = None,
 ) -> np.ndarray:
     """Reassemble chunk bytes from *data* part streams (inverse of
-    split_chunk for the data portion)."""
+    split_chunk for the data portion). ``out``, when given, receives the
+    bytes (uint8 of >= chunk_length) and its first ``chunk_length`` are
+    returned."""
     if slice_type.is_standard or slice_type.is_tape:
-        return np.asarray(data_parts[0][:chunk_length])
-    d = slice_type.data_parts
-    first_data = 1 if slice_type.is_xor else 0
-    nblocks = (chunk_length + MFSBLOCKSIZE - 1) // MFSBLOCKSIZE
-    blocks_per_part = (nblocks + d - 1) // d
-    part_len = blocks_per_part * MFSBLOCKSIZE
-    # stack (d, slots, B), transpose to (slots, d, B) = block order, flatten
-    stacked = np.zeros((d, part_len), dtype=np.uint8)
-    for p in range(d):
-        src = data_parts[first_data + p]
-        stacked[p, : min(part_len, src.shape[0])] = src[:part_len]
-    grid = stacked.reshape(d, blocks_per_part, MFSBLOCKSIZE)
-    return np.ascontiguousarray(grid.transpose(1, 0, 2)).reshape(-1)[:chunk_length]
+        flat = np.asarray(data_parts[0][:chunk_length])
+    else:
+        d = slice_type.data_parts
+        first_data = 1 if slice_type.is_xor else 0
+        nblocks = (chunk_length + MFSBLOCKSIZE - 1) // MFSBLOCKSIZE
+        blocks_per_part = (nblocks + d - 1) // d
+        part_len = blocks_per_part * MFSBLOCKSIZE
+        # stack (d, slots, B), transpose to (slots, d, B) = block order,
+        # flatten
+        stacked = np.zeros((d, part_len), dtype=np.uint8)
+        for p in range(d):
+            src = data_parts[first_data + p]
+            stacked[p, : min(part_len, src.shape[0])] = src[:part_len]
+        grid = stacked.reshape(d, blocks_per_part, MFSBLOCKSIZE)
+        flat = np.ascontiguousarray(grid.transpose(1, 0, 2)).reshape(-1)[:chunk_length]
+    if out is None:
+        return flat
+    out[:chunk_length] = flat
+    return out[:chunk_length]

@@ -49,7 +49,7 @@ def _crcs(t: torch.Tensor) -> np.ndarray:
 
 
 def test_constants_match_reference():
-    for name in ("MFSBLOCKSIZE", "MFSBLOCKSINCHUNK", "MFSCHUNKSIZE", "CRC_POLY",
+    for name in ("MFSBLOCKSIZE", "MFSBLOCKSINCHUNK", "MFSCHUNKSIZE", "MFSHDRSIZE", "CRC_POLY",
                  "GF_POLY", "EC_MIN_DATA", "EC_MAX_DATA", "EC_MIN_PARITY",
                  "EC_MAX_PARITY", "XOR_MIN_LEVEL", "XOR_MAX_LEVEL"):
         assert getattr(constants, name) == getattr(ref_constants, name), name
