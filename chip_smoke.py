@@ -40,13 +40,32 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    encoder the ladder chose, how many kernel calls got rows off a
    16-byte boundary, and the host-clock split of ``rebuild_part``
    (median of 5);
-7. times each kernel and its plain version with CUDA events, the CRC
+7. runs the chunkserver on the wire at ec(8,4): thirteen port
+   ``ChunkServer``s on ephemeral localhost ports, each with its own data
+   folder and the card's encoder; the twelve parts of a 64 MiB chunk
+   (less 3 blocks and 1000 bytes) encoded by ``encode_with_checksums``
+   and written to twelve of them over the wire (``CltocsWriteInit``,
+   one ``CltocsWriteData`` a block carrying the card's block CRC, which
+   each server checks against zlib, ``CltocsWriteEnd``); a std part
+   relayed down a two-server chain; the whole chunk read back with
+   ``read_part_range``; part 3's server stopped and a ``SliceReadPlanner``
+   plan for data parts 0-7, blocks 5-41, run by ``execute_plan`` over the
+   eleven live servers (recovery through the card); part 3 rebuilt by
+   ``_cmd_replicate`` on the thirteenth server from the other eleven
+   (its file, bytes and CRC slots against the write's); the ``encode``
+   and ``block_crcs`` counters set to 0 before the degraded read and
+   read after the rebuild, the encoder the replicator chose, the count of
+   wrapper calls on offset rows, and host-clock times (median of 3) of
+   the wire write, the whole read, the degraded read and
+   ``_cmd_replicate`` with its split (``plan_rebuild``, ``execute_plan``
+   and its ``recover``, ``write_rebuilt`` and its ``checksum``);
+8. times each kernel and its plain version with CUDA events, the CRC
    wrappers on rows off a 16-byte boundary, the encoder's write and
    one-part rebuild end to end (numpy in and out) at ec(8,4), and the
    ec(32,8) wide-stripe encode and rebuild on the mesh beside one card's
    encoder, and prints one JSON line per kernel and per path, the card,
    and a ``{"kernels": [...]}`` line;
-8. ends with ``{"ok": true, "device": {...}}``.
+9. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero.
 """
@@ -54,7 +73,9 @@ Any failed phase raises, so the script exits non-zero.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
+import logging
 import re
 import shutil
 import subprocess
@@ -367,6 +388,9 @@ def main() -> int:
 
     # -- phase 5: the chunkserver's rebuild path, on disk ----------------
     rebuild_path(get_encoder("cuda"), card)
+
+    # -- phase 5b: the chunkserver on the wire -----------------------------
+    wire_path(get_encoder("cuda"), card)
 
     # -- phase 6: timing -------------------------------------------------
     def window_ms(fn, iters):
@@ -751,14 +775,6 @@ def rebuild_path(configured, card: str) -> None:
     st = geometry.load_goal_config(SHIPPED_GOALS)[10].disk_slice().type
     require(int(st) == int(geometry.ec_type(K, M)), f"the shipped goal is ec(8,4): {st!r}")
     encoder = replicate.replicator_encoder(configured)
-    offset_rows = [0]  # wrapper calls given rows off a 16-byte boundary
-    aligned = cuda_ec._aligned
-
-    def counted(t):
-        ok = aligned(t)
-        offset_rows[0] += not ok
-        return ok
-
     rng = np.random.default_rng(SEED + 1)
     chunk = rng.integers(0, 256, CHUNK, dtype=np.uint8)
     short = rng.integers(0, 256, SHORT_CHUNK, dtype=np.uint8)
@@ -780,8 +796,7 @@ def rebuild_path(configured, card: str) -> None:
         sources = [loc for loc in locs if loc.part_id != lost_id]
 
         cuda_ec.reset_launches()
-        cuda_ec._aligned = counted  # read by the CRC wrappers' copy and the GF byte path
-        try:
+        with offset_rows_counted() as offset_rows:
             t0 = time.perf_counter()
             # 2. rebuild part 3 into a fresh store
             target = ChunkStore(f"{root}/rebuilt")
@@ -824,8 +839,6 @@ def rebuild_path(configured, card: str) -> None:
                                        encoder)
                 check_rebuilt(target, chunk_id, xid, xparts[lost], None)
             sync_all()
-        finally:
-            cuda_ec._aligned = aligned
         launches = dict(cuda_ec.LAUNCHES)
         print(f"rebuild path: {time.perf_counter() - t0:.3f} s, encoder {encoder.name}, "
               f"launches {json.dumps(launches)}, offset rows {offset_rows[0]}")
@@ -893,6 +906,297 @@ def degraded_read(st, chunk, first, count, by_part, stores, encoder, stats, plan
     want[: len(piece)] = piece
     require(np.array_equal(region, want), f"degraded read of stripes {first}+{count}")
     return run.waves
+
+
+@contextlib.contextmanager
+def offset_rows_counted():
+    """Count the kernel wrappers' calls given rows off a 16-byte boundary
+    (the CRC wrappers copy those, the GF apply takes its byte path):
+    yields a one-element list that holds the count."""
+    from lizardfs_tpu_torch.ops import cuda_ec
+
+    count = [0]
+    aligned = cuda_ec._aligned
+
+    def counted(t):
+        ok = aligned(t)
+        count[0] += not ok
+        return ok
+
+    cuda_ec._aligned = counted  # read by the CRC wrappers' copy and the GF byte path
+    try:
+        yield count
+    finally:
+        cuda_ec._aligned = aligned
+
+
+def median_ms(times: list[float]) -> float:
+    return float(np.median(times)) * 1e3
+
+
+def sampled(prof, top: int = 6) -> dict:
+    """A sampling profiler's samples since its last reset, by thread
+    (``loop``: the event loop's; ``worker``: the disk threads of
+    ``asyncio.to_thread``; ``other``) and by leaf frame, the ``top``
+    most sampled leaves of each."""
+    kinds = {}
+    for line in prof.collapsed().splitlines():
+        stack, _, n = line.rpartition(" ")
+        frames = stack.split(";")
+        kind = ("loop" if "base_events.run_forever" in frames
+                else "worker" if "thread._worker" in frames else "other")
+        entry = kinds.setdefault(kind, {"samples": 0, "leaves": collections.Counter()})
+        entry["samples"] += int(n)
+        entry["leaves"][frames[-1]] += int(n)
+    return {k: {"samples": v["samples"], "leaves": dict(v["leaves"].most_common(top))}
+            for k, v in kinds.items()}
+
+
+async def wire_write(cs, chunk_id: int, part_id: int, data: np.ndarray, crcs,
+                     chain=()) -> int:
+    """Write ``data`` as part ``part_id`` to ``cs`` over the wire, as the
+    client's framed path does: a ``CltocsWriteInit`` that creates the part
+    (relayed down ``chain``, a list of (server, part id)), one
+    ``CltocsWriteData`` a 64 KiB block whose CRC is ``crcs[b]`` (the
+    card's; a short last piece carries its host CRC), and a
+    ``CltocsWriteEnd``. Every status must be OK. Returns the count of
+    pieces that carried a card CRC."""
+    import asyncio
+
+    from lizardfs_tpu_torch.ops import crc32
+    from lizardfs_tpu_torch.proto import framing
+    from lizardfs_tpu_torch.proto import messages as m
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", cs.port)
+    try:
+        await framing.send_message(writer, m.CltocsWriteInit(
+            req_id=1, chunk_id=chunk_id, version=1, part_id=part_id, create=True,
+            chain=[m.PartLocation(addr=m.Addr(host="127.0.0.1", port=s.port), part_id=p)
+                   for s, p in chain],
+        ))
+        require((await framing.read_message(reader)).status == 0, f"write init of part {part_id}")
+        nblocks = -(-len(data) // BS)
+        carried = 0
+        for b in range(nblocks):
+            piece = data[b * BS : (b + 1) * BS]
+            whole = len(piece) == BS
+            carried += whole
+            await framing.send_message(writer, m.CltocsWriteData(
+                req_id=2 + b, chunk_id=chunk_id, write_id=b + 1, block=b, offset=0,
+                crc=int(crcs[b]) if whole else crc32.crc32(piece), data=piece.tobytes(),
+            ))
+        acks = [await framing.read_message(reader) for _ in range(nblocks)]
+        require(all(isinstance(a, m.CstoclWriteStatus) and a.status == 0 for a in acks),
+                f"every block of part {part_id} acked OK")
+        await framing.send_message(writer, m.CltocsWriteEnd(req_id=nblocks + 2, chunk_id=chunk_id))
+        require((await framing.read_message(reader)).status == 0, f"write end of part {part_id}")
+        return carried
+    finally:
+        writer.close()
+
+
+def wire_path(configured, card: str) -> None:
+    """The chunkserver on the wire at ec(8,4), port code only: thirteen
+    ``ChunkServer``s in this process with ``configured`` (the card's
+    encoder), a 64 MiB chunk less 3 blocks and 1000 bytes written over the
+    wire with the card's parity and block CRCs, a chain relay, the whole
+    read, a degraded read with part 3's server stopped and part 3 rebuilt
+    by ``_cmd_replicate`` on the thirteenth server. Every server is stopped
+    and the connection pool closed on the way out."""
+    import asyncio
+
+    asyncio.run(_wire_path(configured, card))
+
+
+async def _wire_path(configured, card: str) -> None:
+    import asyncio
+
+    from lizardfs_tpu_torch.chunkserver import replicate
+    from lizardfs_tpu_torch.chunkserver.server import ChunkServer
+    from lizardfs_tpu_torch.core import conn_pool, geometry, plans, read_executor
+    from lizardfs_tpu_torch.core.cs_stats import GLOBAL_STATS
+    from lizardfs_tpu_torch.ops import cuda_ec
+    from lizardfs_tpu_torch.ops import crc32
+    from lizardfs_tpu_torch.proto import messages as m
+    from lizardfs_tpu_torch.runtime import profiler
+    from lizardfs_tpu_torch.utils import striping
+
+    st = geometry.ec_type(K, M)
+    rng = np.random.default_rng(SEED + 2)
+    chunk = rng.integers(0, 256, SHORT_CHUNK, dtype=np.uint8)
+    pid = {p: geometry.ChunkPartType(st, p).id for p in range(K + M)}
+    sizes = {p: striping.part_length(st, p, SHORT_CHUNK) for p in range(K + M)}
+    times = collections.defaultdict(list)
+    servers, stopped = [], set()
+    prof = profiler.SamplingProfiler(role="chip_smoke", interval_s=0.005, overhead_budget=0.25)
+    # recovery runs on the event loop, as the JAX package's does: the
+    # daemons' stall warnings are counted below, not printed
+    log = logging.getLogger(ChunkServer.name)
+    level = log.level
+    log.setLevel(logging.ERROR)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wire_") as root:
+        try:
+            for i in range(K + M + 1):
+                cs = ChunkServer(f"{root}/cs{i}", master_addr=None, encoder=configured)
+                await cs.start()
+                servers.append(cs)
+            addr = {p: ("127.0.0.1", servers[p].port) for p in range(K + M)}
+
+            # 1. the card's parity and block CRCs, and the twelve parts
+            # written over the wire, one server each (the first of three
+            # timed writes is the one checked)
+            t = time.perf_counter()
+            stripe = np.stack(striping.padded_data_parts(chunk, K)[0])
+            parity, dcrc, pcrc = configured.encode_with_checksums(K, M, stripe, BS)
+            times["encode_ms"].append(time.perf_counter() - t)
+            parts = dict(enumerate(list(stripe) + list(parity)))
+            crcs = np.concatenate([dcrc, pcrc])
+            # a sampling profiler of the daemons' kind (LZ_PROF, on by
+            # default), at up to 200 Hz, splits the timed steps by thread
+            # and frame
+            prof.start()
+            for _ in range(3):
+                t = time.perf_counter()
+                carried = await asyncio.gather(*(
+                    wire_write(servers[p], 1, pid[p], parts[p][: sizes[p]], crcs[p])
+                    for p in range(K + M)))
+                times["write_ms"].append(time.perf_counter() - t)
+            profiles = {"write": sampled(prof)}
+            print(f"wire phase: wrote {K + M} parts ({sum(sizes.values())} bytes), "
+                  f"{sum(carried)} pieces with card CRCs")
+
+            # 2. a std part relayed down a two-server chain: both copies
+            # read back identical to the chunk
+            std_id = geometry.ChunkPartType(geometry.SliceType(geometry.STANDARD), 0).id
+            padded = np.zeros(-(-SHORT_CHUNK // BS) * BS, np.uint8)
+            padded[:SHORT_CHUNK] = chunk
+            std_crcs = configured.checksum(padded.reshape(-1, BS))
+            await wire_write(servers[K + M], 2, std_id, chunk, std_crcs,
+                             chain=[(servers[0], std_id)])
+            copies = [await read_executor.read_part_range(
+                ("127.0.0.1", cs.port), 2, 1, std_id, 0, SHORT_CHUNK) for cs in (servers[K + M], servers[0])]
+            require(np.array_equal(copies[0], copies[1]) and np.array_equal(copies[0], chunk),
+                    "both copies of the chain-written std part")
+
+            # 3. the whole chunk read back part by part
+            for _ in range(3):
+                t = time.perf_counter()
+                got = await asyncio.gather(*(read_executor.read_part_range(
+                    addr[p], 1, 1, pid[p], 0, sizes[p]) for p in range(K)))
+                times["read_ms"].append(time.perf_counter() - t)
+                require(np.array_equal(striping.assemble_chunk(dict(enumerate(got)), st, SHORT_CHUNK),
+                                       chunk), "the whole chunk read over the wire")
+
+            # 4. part 3's server stops; a degraded read of data parts 0-7,
+            # blocks 5-41, over the eleven live servers
+            await servers[LOST].stop()
+            stopped.add(LOST)
+            live = {p: (addr[p], pid[p]) for p in range(K + M) if p != LOST}
+            first, count = RMW_BLOCKS
+            bps = count * BS
+            want = chunk[first * K * BS : (first + count) * K * BS]
+            cuda_ec.reset_launches()
+            with offset_rows_counted() as offset_rows:
+                for _ in range(3):
+                    planner = plans.SliceReadPlanner(
+                        st, list(live), scores={p: GLOBAL_STATS.score(a) for p, (a, _) in live.items()},
+                        encoder=configured)
+                    plan = planner.build_plan(list(range(K)), first, count, sizes)
+                    t = time.perf_counter()
+                    buf = await read_executor.execute_plan(plan, 1, 1, live)
+                    sync_all()
+                    times["degraded_read_ms"].append(time.perf_counter() - t)
+                    region = striping.assemble_chunk(
+                        {p: buf[p * bps : (p + 1) * bps] for p in range(K)}, st, K * bps)
+                    require(np.array_equal(region, want), f"degraded read of stripes {first}+{count}")
+
+                # 5. part 3 rebuilt by _cmd_replicate on the thirteenth server
+                target = servers[K + M]
+                msg = m.MatocsReplicate(
+                    req_id=1, chunk_id=1, version=1, part_id=pid[LOST],
+                    sources=[m.PartLocation(addr=m.Addr(host=a[0], port=a[1]), part_id=w)
+                             for a, w in live.values()])
+                await target._cmd_replicate(msg)
+                require(target.metrics.counter("replications").total == 1, "the rebuild ran")
+                check_rebuilt(target.store, 1, pid[LOST], parts[LOST], dcrc[LOST])
+                sync_all()
+            launches = dict(cuda_ec.LAUNCHES)
+            recovery = target._replicator_encoder()
+            print(f"wire path: encoder {configured.name}, replicator {recovery.name}, "
+                  f"launches {json.dumps(launches)}, offset rows {offset_rows[0]}")
+            for name in ("encode", "block_crcs"):
+                require(launches[name] >= 1, f"{name} launched on the wire path")
+
+            # 6. the rebuild's host-clock split, median of 3
+            split = collections.defaultdict(float)
+            plan_rebuild, execute_plan = replicate.plan_rebuild, read_executor.execute_plan
+            write_rebuilt = replicate.write_rebuilt
+
+            def timed(name, fn):
+                def run(*args, **kwargs):
+                    t = time.perf_counter()
+                    out = fn(*args, **kwargs)
+                    sync_all()
+                    split[name] += time.perf_counter() - t
+                    return out
+                return run
+
+            async def timed_execute(*args, **kwargs):
+                t = time.perf_counter()
+                out = await execute_plan(*args, **kwargs)
+                sync_all()
+                split["execute_plan"] += time.perf_counter() - t
+                return out
+
+            replicate.plan_rebuild = timed("plan_rebuild", plan_rebuild)
+            replicate.write_rebuilt = timed("write_rebuilt", write_rebuilt)
+            read_executor.execute_plan = timed_execute
+            target._recovery_encoder = Timed(recovery, "recover")
+            target.encoder = Timed(configured, "checksum")
+            prof.reset()
+            try:
+                for _ in range(3):
+                    target.store.delete(1, 1, pid[LOST])
+                    split.clear()
+                    target._recovery_encoder.seconds["recover"] = 0.0
+                    target.encoder.seconds["checksum"] = 0.0
+                    t = time.perf_counter()
+                    await target._cmd_replicate(msg)
+                    times["replicate_ms"].append(time.perf_counter() - t)
+                    for name in ("plan_rebuild", "execute_plan", "write_rebuilt"):
+                        times[f"{name}_ms"].append(split[name])
+                    times["recover_ms"].append(target._recovery_encoder.seconds["recover"])
+                    times["checksum_ms"].append(target.encoder.seconds["checksum"])
+            finally:
+                replicate.plan_rebuild, replicate.write_rebuilt = plan_rebuild, write_rebuilt
+                read_executor.execute_plan = execute_plan
+                target._recovery_encoder, target.encoder = recovery, configured
+            profiles["replicate"] = sampled(prof)
+            require(target.metrics.counter("replications").total == 4, "every timed rebuild ran")
+            # host zlib over the 64 MiB a rebuild reads, piece by piece,
+            # as the source stores and the executor each check it
+            pieces = [parts[p][b * BS : (b + 1) * BS].tobytes()
+                      for p in range(K) for b in range(PART // BS)]
+            for _ in range(3):
+                t = time.perf_counter()
+                for piece in pieces:
+                    crc32.crc32(piece)
+                times["host_zlib_64MiB_ms"].append(time.perf_counter() - t)
+            check_rebuilt(target.store, 1, pid[LOST], parts[LOST], dcrc[LOST])
+            stalls = sum(cs.metrics.counter("loop_stalls").total for cs in servers)
+        finally:
+            for i, cs in enumerate(servers):
+                if i not in stopped:
+                    await cs.stop()
+            conn_pool.GLOBAL_POOL.close_all()
+            prof.stop()
+            log.setLevel(level)
+    print(json.dumps({"path": "wire_ec8_4_64MiB", "reps": 3, "bytes_written": sum(sizes.values()),
+                      "loop_stall_warnings": stalls,
+                      **{k: median_ms(v) for k, v in times.items()},
+                      "encoder": configured.name, "replicator": recovery.name, "card": card}))
+    for step, split in profiles.items():
+        print(json.dumps({"profile": f"wire_{step}", **split}))
 
 
 if __name__ == "__main__":

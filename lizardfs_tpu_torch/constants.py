@@ -54,3 +54,22 @@ def env_flag(name: str, default: bool = True) -> bool:
     if raw is None:
         return default
     return raw.lower() not in OFF_SPELLINGS
+
+
+def shadow_reads_enabled() -> bool:
+    """LZ_SHADOW_READS (default on): the chunkserver keeps passive mirror
+    links to the non-active masters (shadow read replicas)."""
+    return env_flag("LZ_SHADOW_READS")
+
+
+def qos_enabled() -> bool:
+    """LZ_QOS (default on): the chunkserver's weighted data-plane queue
+    admits reads, writes and rebuilds per tenant. An unconfigured queue
+    admits everything either way."""
+    return env_flag("LZ_QOS")
+
+
+def heat_enabled() -> bool:
+    """LZ_HEAT (default on): the chunkserver folds per-chunk heat into
+    its heartbeats; off sends an empty fold."""
+    return env_flag("LZ_HEAT")

@@ -1,0 +1,108 @@
+"""Idle-connection reuse pool for chunkserver links.
+
+The reference keeps a pool of idle TCP connections to chunkservers and
+reuses them across read operations (reference:
+src/common/connection_pool.{h,cc}, chunk_connector.{h,cc}). Same here:
+``acquire`` hands out an idle (reader, writer) pair or dials a new one;
+``release`` returns it after a fully-drained exchange. Connections are
+validated cheaply on acquire (EOF check) and expire after an idle TTL.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+
+from lizardfs_tpu_torch.runtime import faults as _faults
+from lizardfs_tpu_torch.runtime import retry as _retry
+from lizardfs_tpu_torch.runtime import tracing as _tracing
+
+# dial bound: a blackholed chunkserver (SYN dropped) must cost a read
+# attempt seconds, not the OS connect timeout; tighter ambient
+# RetryPolicy deadlines shrink this further (runtime/retry.py)
+DIAL_TIMEOUT = 5.0
+
+
+class PooledConnection:
+    __slots__ = ("reader", "writer", "idle_since", "loop")
+
+    def __init__(self, reader, writer):
+        self.reader = reader
+        self.writer = writer
+        self.idle_since = 0.0
+        self.loop = asyncio.get_running_loop()
+
+
+class ConnectionPool:
+    def __init__(self, max_idle_per_addr: int = 4, idle_ttl: float = 5.0):
+        self.max_idle = max_idle_per_addr
+        self.idle_ttl = idle_ttl
+        self._idle: dict[tuple[str, int], list[PooledConnection]] = {}
+
+    async def acquire(self, addr: tuple[str, int]) -> PooledConnection:
+        bucket = self._idle.get(addr, [])
+        now = time.monotonic()
+        loop = asyncio.get_running_loop()
+        while bucket:
+            conn = bucket.pop()
+            # streams are bound to the loop that created them; a pooled
+            # pair from another (possibly closed) loop is unusable
+            if conn.loop is not loop:
+                try:
+                    conn.writer.close()
+                except RuntimeError:
+                    pass
+                continue
+            if now - conn.idle_since > self.idle_ttl:
+                conn.writer.close()
+                continue
+            if conn.reader.at_eof() or conn.writer.is_closing():
+                conn.writer.close()
+                continue
+            return conn
+        if _faults.ACTIVE:
+            await _faults.dial_point("cs", f"{addr[0]}:{addr[1]}")
+        # pool miss: the dial is read-phase "dial" busy-time (and the
+        # `dial` queue-wait gate) on whatever logical read is ambient;
+        # free when no read-phase sink is active
+        t0 = _tracing.phase_t0()
+        reader, writer = await _retry.bounded_wait(
+            asyncio.open_connection(*addr), DIAL_TIMEOUT
+        )
+        _tracing.charge_phase("dial", t0)
+        return PooledConnection(reader, writer)
+
+    def release(self, addr: tuple[str, int], conn: PooledConnection) -> None:
+        """Return a connection after a complete request/response cycle."""
+        try:
+            same_loop = conn.loop is asyncio.get_running_loop()
+        except RuntimeError:
+            same_loop = False
+        if not same_loop or conn.writer.is_closing() or conn.reader.at_eof():
+            conn.writer.close()
+            return
+        bucket = self._idle.setdefault(addr, [])
+        if len(bucket) >= self.max_idle:
+            conn.writer.close()
+            return
+        conn.idle_since = time.monotonic()
+        bucket.append(conn)
+
+    def discard(self, conn: PooledConnection) -> None:
+        """Drop a connection whose stream state is unknown (errors)."""
+        conn.writer.close()
+
+    def close_all(self) -> None:
+        for bucket in self._idle.values():
+            for conn in bucket:
+                try:
+                    conn.writer.close()
+                except RuntimeError:
+                    # stream bound to a dead loop (see acquire): the
+                    # socket died with its loop, nothing left to close
+                    pass
+        self._idle.clear()
+
+
+# module-level default pool shared by read executors in one process
+GLOBAL_POOL = ConnectionPool()

@@ -1,0 +1,1508 @@
+"""Message catalog for every link in the system.
+
+Semantic mirror of the reference's per-link packet headers (reference:
+src/protocol/{cltoma,matocl,cltocs,cstocl,cstoma,matocs,cstocs}.h and the
+id catalog in MFSCommunication.h) with a fresh, uniform encoding via
+:mod:`lizardfs_tpu_torch.proto.codec`. Type id ranges by link:
+
+  1000-1099  client -> master (CLTOMA) / master -> client (MATOCL)
+  1100-1199  chunkserver <-> master (CSTOMA / MATOCS)
+  1200-1299  client/peer <-> chunkserver data plane (CLTOCS / CSTOCL / CSTOCS)
+  1300-1399  metalogger/shadow <-> master (MLTOMA / MATOML)
+  1400-1499  admin
+
+Requests carry a ``req_id`` echoed by the response so links can pipeline
+(the reference pairs messages by message id fields similarly).
+"""
+
+from __future__ import annotations
+
+from lizardfs_tpu_torch.proto.codec import Message
+
+# --------------------------------------------------------------------------
+# shared sub-structures
+# --------------------------------------------------------------------------
+
+
+class Addr(Message):
+    """Network address of a daemon."""
+
+    FIELDS = (("host", "str"), ("port", "u16"))
+
+    def key(self):
+        return (self.host, self.port)
+
+
+class Attr(Message):
+    """File attributes (subset of the reference's 35-byte attr blob).
+
+    ``eattr`` (trailing, skew-tolerant): the per-inode extra-attribute
+    flags (EATTR_NOOWNER/NOCACHE/NOENTRYCACHE, constants.py) — carried
+    on every attr reply so clients can enforce cache semantics without
+    an extra RPC; peers predating the field read/serve 0.
+
+    ``meta_version`` (trailing, skew-tolerant): the consistency token —
+    NOT a file attribute but the serving master's applied changelog
+    position, stamped at reply time. It rides Attr because Attr is the
+    skew-variable terminal field of MatoclAttrReply (the codec forbids
+    fields after it); see MatoclReadChunk for the token semantics."""
+
+    SKEW_TOLERANT_FROM = 12
+    FIELDS = (
+        ("inode", "u32"),
+        ("ftype", "u8"),  # 1=file, 2=directory, 3=symlink
+        ("mode", "u16"),
+        ("uid", "u32"),
+        ("gid", "u32"),
+        ("atime", "u32"),
+        ("mtime", "u32"),
+        ("ctime", "u32"),
+        ("nlink", "u32"),
+        ("length", "u64"),
+        ("goal", "u8"),
+        ("trash_time", "u32"),
+        ("eattr", "u8"),
+        ("meta_version", "u64"),
+    )
+
+
+FTYPE_FILE = 1
+FTYPE_DIR = 2
+FTYPE_SYMLINK = 3
+
+
+class PartLocation(Message):
+    """Where one chunk part lives."""
+
+    FIELDS = (("addr", "msg:Addr"), ("part_id", "u32"))  # part_id = ChunkPartType.id
+
+
+class DirEntry(Message):
+    FIELDS = (("name", "str"), ("inode", "u32"), ("ftype", "u8"))
+
+
+class ChunkPartInfo(Message):
+    """A chunk part held by a chunkserver (registration / reports)."""
+
+    FIELDS = (("chunk_id", "u64"), ("version", "u32"), ("part_id", "u32"))
+
+
+# --------------------------------------------------------------------------
+# client <-> master
+# --------------------------------------------------------------------------
+
+
+class CltomaRegister(Message):
+    """``replica_ok`` (trailing, skew-tolerant): set by clients willing
+    to be served by a shadow master in read-replica mode — the shadow
+    accepts the (primary-issued) ``session_id`` without committing a
+    session allocation and serves only the read-mostly RPC allowlist.
+    Old peers send 0 and are refused by shadows as before.
+
+    ``epoch`` (trailing, skew-tolerant): the highest cluster fencing
+    epoch the client has observed (see MatoclRegister). A master whose
+    own epoch is LOWER refuses the registration — it is a zombie
+    ex-primary a later election superseded. 0 = pre-HA peer / no
+    election has ever run (fencing never engages)."""
+
+    MSG_TYPE = 1000
+    SKEW_TOLERANT_FROM = 4
+    FIELDS = (
+        ("req_id", "u32"),
+        ("session_id", "u64"),
+        ("info", "str"),
+        ("password", "str"),
+        ("replica_ok", "u8"),
+        ("epoch", "u64"),
+    )
+
+
+class MatoclRegister(Message):
+    # trailing ``meta_version``: the serving master's applied changelog
+    # position — seeds the client's monotonic-reads floor (see
+    # MatoclAttrReply); old masters send 0 = no floor.
+    # trailing ``epoch``: the serving master's cluster fencing epoch
+    # (epoch_bump changelog op, HA failover). The client keeps the max
+    # it has ever seen and presents it on every redial, so a zombie
+    # ex-primary can never re-adopt a client that outlived it. Old
+    # masters send 0.
+    MSG_TYPE = 1001
+    SKEW_TOLERANT_FROM = 3
+    FIELDS = (
+        ("req_id", "u32"),
+        ("status", "u8"),
+        ("session_id", "u64"),
+        ("meta_version", "u64"),
+        ("epoch", "u64"),
+    )
+
+
+class CltomaLookup(Message):
+    MSG_TYPE = 1002
+    FIELDS = (
+        ("req_id", "u32"),
+        ("parent", "u32"),
+        ("name", "str"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class MatoclAttrReply(Message):
+    """Shared reply for lookup/getattr/mkdir/create/setattr.
+
+    The consistency token rides ``attr.meta_version`` (Attr must stay
+    the terminal field — its own skew-tolerant tail elides): the
+    serving master's applied changelog position at reply time. A client
+    routing reads to a shadow replica keeps the max token it has
+    observed (its monotonic-reads floor; mutations through the primary
+    raise it) and retries through the primary whenever a replica reply
+    carries an older token. Old peers send/read 0 = untokened."""
+
+    MSG_TYPE = 1003
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("attr", "msg:Attr"))
+
+
+class CltomaGetattr(Message):
+    MSG_TYPE = 1004
+    FIELDS = (("req_id", "u32"), ("inode", "u32"))
+
+
+class CltomaMkdir(Message):
+    MSG_TYPE = 1006
+    FIELDS = (
+        ("req_id", "u32"),
+        ("parent", "u32"),
+        ("name", "str"),
+        ("mode", "u16"),
+        ("uid", "u32"),
+        ("gid", "u32"),
+    )
+
+
+class CltomaCreate(Message):
+    MSG_TYPE = 1008
+    FIELDS = (
+        ("req_id", "u32"),
+        ("parent", "u32"),
+        ("name", "str"),
+        ("mode", "u16"),
+        ("uid", "u32"),
+        ("gid", "u32"),
+    )
+
+
+class CltomaReaddir(Message):
+    MSG_TYPE = 1010
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class MatoclReaddir(Message):
+    # trailing ``meta_version``: consistency token, see MatoclAttrReply
+    MSG_TYPE = 1011
+    SKEW_TOLERANT_FROM = 3
+    FIELDS = (
+        ("req_id", "u32"),
+        ("status", "u8"),
+        ("entries", "list:msg:DirEntry"),
+        ("meta_version", "u64"),
+    )
+
+
+class CltomaUnlink(Message):
+    MSG_TYPE = 1012
+    FIELDS = (
+        ("req_id", "u32"),
+        ("parent", "u32"),
+        ("name", "str"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class MatoclStatusReply(Message):
+    """Generic status-only reply.
+
+    ``meta_version`` (trailing, skew-tolerant): consistency token, see
+    MatoclAttrReply — carried on mutation acks too so a client's
+    monotonic-reads floor covers read-your-writes through replicas.
+
+    ``retry_after_ms`` (trailing, skew-tolerant): the fair-share
+    admission controller's backoff hint on BUSY sheds — QoS sheds
+    answer ANY request type with this reply (the RPC pump resolves by
+    req_id and call_ok raises before typed-field access), so the hint
+    needs exactly one carrier. 0 / absent = no hint."""
+
+    MSG_TYPE = 1013
+    SKEW_TOLERANT_FROM = 2
+    FIELDS = (
+        ("req_id", "u32"), ("status", "u8"), ("meta_version", "u64"),
+        ("retry_after_ms", "u32"),
+    )
+
+
+class CltomaRmdir(Message):
+    MSG_TYPE = 1014
+    FIELDS = (
+        ("req_id", "u32"),
+        ("parent", "u32"),
+        ("name", "str"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class CltomaRename(Message):
+    MSG_TYPE = 1016
+    FIELDS = (
+        ("req_id", "u32"),
+        ("parent_src", "u32"),
+        ("name_src", "str"),
+        ("parent_dst", "u32"),
+        ("name_dst", "str"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class CltomaSetGoal(Message):
+    MSG_TYPE = 1018
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("goal", "u8"),
+        ("uid", "u32"),
+    )
+
+
+class CltomaSetEattr(Message):
+    """Set the per-inode extra-attribute flags (geteattr reads them
+    from any attr reply's trailing ``eattr``). Replied with
+    MatoclAttrReply carrying the updated attr."""
+
+    MSG_TYPE = 1070
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("eattr", "u8"),
+        ("uid", "u32"),
+    )
+
+
+class CltomaReadChunk(Message):
+    # ``trace_id`` (request-scoped tracing, runtime/tracing.py) is a
+    # skew-tolerant trailing field: a peer predating it decodes as
+    # trace 0 = untraced (tests/test_tracing.py pins the skew)
+    MSG_TYPE = 1020
+    SKEW_TOLERANT_FROM = 5
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("chunk_index", "u32"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+        ("trace_id", "u64"),
+    )
+
+
+class MatoclReadChunk(Message):
+    # trailing ``meta_version``: consistency token, see MatoclAttrReply.
+    # On locate replies the token pairs with the client's local
+    # locate-epoch machinery: the epoch guards against invalidations
+    # racing the RPC, the token guards against a lagging replica.
+    MSG_TYPE = 1021
+    SKEW_TOLERANT_FROM = 6
+    FIELDS = (
+        ("req_id", "u32"),
+        ("status", "u8"),
+        ("chunk_id", "u64"),
+        ("version", "u32"),
+        ("file_length", "u64"),
+        ("locations", "list:msg:PartLocation"),
+        ("meta_version", "u64"),
+    )
+
+
+class CltomaWriteChunk(Message):
+    # trailing ``trace_id``: see CltomaReadChunk
+    MSG_TYPE = 1022
+    SKEW_TOLERANT_FROM = 5
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("chunk_index", "u32"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+        ("trace_id", "u64"),
+    )
+
+
+class MatoclWriteChunk(Message):
+    MSG_TYPE = 1023
+    FIELDS = (
+        ("req_id", "u32"),
+        ("status", "u8"),
+        ("chunk_id", "u64"),
+        ("version", "u32"),
+        ("file_length", "u64"),
+        ("locations", "list:msg:PartLocation"),
+    )
+
+
+class CltomaWriteChunkEnd(Message):
+    # trailing ``trace_id``: see CltomaReadChunk. The verdict-bearing
+    # ``status`` stays REQUIRED — only the trace hint is optional.
+    MSG_TYPE = 1024
+    SKEW_TOLERANT_FROM = 6
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("inode", "u32"),
+        ("chunk_index", "u32"),
+        ("file_length", "u64"),
+        ("status", "u8"),
+        ("trace_id", "u64"),
+    )
+
+
+class WriteChunkEndEntry(Message):
+    """One chunk's end-of-write record inside a coalesced commit."""
+
+    FIELDS = (
+        ("chunk_id", "u64"),
+        ("inode", "u32"),
+        ("chunk_index", "u32"),
+        ("file_length", "u64"),
+        ("status", "u8"),
+    )
+
+
+class CltomaWriteChunkEndBatch(Message):
+    """Coalesced WriteChunkEnd: one master round trip seals every chunk
+    the write window has finished since the last flush, instead of one
+    handshake per chunk. Entries apply in list order (chain-write
+    ordering preserved; the length merge is max() so order cannot
+    shrink a file). Trailing ``trace_id``: see CltomaReadChunk."""
+
+    MSG_TYPE = 1075
+    SKEW_TOLERANT_FROM = 2
+    FIELDS = (
+        ("req_id", "u32"),
+        ("ends", "list:msg:WriteChunkEndEntry"),
+        ("trace_id", "u64"),
+    )
+
+
+class CltomaChunkDamaged(Message):
+    """Client-side corruption report: a read CRC-rejected this part
+    (the bytes arrived but fail their checksum — the HOLDER's copy is
+    bad). The master drops the part from the holder's recorded set and
+    queues the chunk through the RebuildEngine, the same handling a
+    chunkserver scrubber report (CstomaChunkDamaged) gets; the holder
+    is named by address because clients never learn cs_ids."""
+
+    MSG_TYPE = 1076
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("part_id", "u32"),
+        ("host", "str"),
+        ("port", "u16"),
+    )
+
+
+class CltomaTruncate(Message):
+    MSG_TYPE = 1026
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("length", "u64"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class CltomaSetattr(Message):
+    MSG_TYPE = 1028
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("set_mask", "u8"),  # 1=mode 2=uid 4=gid 8=atime 16=mtime 32=trash_time
+        ("mode", "u16"),
+        ("uid", "u32"),
+        ("gid", "u32"),
+        ("atime", "u32"),
+        ("mtime", "u32"),
+        ("trash_time", "u32"),
+        ("caller_uid", "u32"),
+        ("caller_gids", "list:u32"),
+    )
+
+
+class CltomaSymlink(Message):
+    MSG_TYPE = 1030
+    FIELDS = (
+        ("req_id", "u32"),
+        ("parent", "u32"),
+        ("name", "str"),
+        ("target", "str"),
+        ("uid", "u32"),
+        ("gid", "u32"),
+    )
+
+
+class CltomaReadlink(Message):
+    MSG_TYPE = 1032
+    FIELDS = (("req_id", "u32"), ("inode", "u32"))
+
+
+class MatoclReadlink(Message):
+    # trailing ``meta_version``: consistency token, see MatoclAttrReply
+    MSG_TYPE = 1033
+    SKEW_TOLERANT_FROM = 3
+    FIELDS = (
+        ("req_id", "u32"),
+        ("status", "u8"),
+        ("target", "str"),
+        ("meta_version", "u64"),
+    )
+
+
+class CltomaLink(Message):
+    MSG_TYPE = 1034
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("parent", "u32"),
+        ("name", "str"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class CltomaSnapshot(Message):
+    MSG_TYPE = 1036
+    FIELDS = (
+        ("req_id", "u32"),
+        ("src_inode", "u32"),
+        ("dst_parent", "u32"),
+        ("dst_name", "str"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class CltomaSetXattr(Message):
+    """Set (value non-empty) or remove (value empty) an xattr."""
+
+    MSG_TYPE = 1038
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("name", "str"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+        ("value", "bytes"),
+    )
+
+
+class CltomaGetXattr(Message):
+    MSG_TYPE = 1040
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("name", "str"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class MatoclXattrReply(Message):
+    MSG_TYPE = 1041
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("value", "bytes"))
+
+
+class CltomaListXattr(Message):
+    # carries no identity: listxattr(2) needs no access on the inode
+    MSG_TYPE = 1042
+    FIELDS = (("req_id", "u32"), ("inode", "u32"))
+
+
+class MatoclListXattr(Message):
+    MSG_TYPE = 1043
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("names", "list:str"))
+
+
+class CltomaSetQuota(Message):
+    """Set/remove quota limits (remove when all limits zero and
+    ``remove`` set)."""
+
+    MSG_TYPE = 1044
+    FIELDS = (
+        ("req_id", "u32"),
+        ("kind", "str"),  # user | group | dir
+        ("owner_id", "u32"),  # uid/gid/directory inode
+        ("soft_inodes", "u64"),
+        ("hard_inodes", "u64"),
+        ("soft_bytes", "u64"),
+        ("hard_bytes", "u64"),
+        ("remove", "bool"),
+        ("uid", "u32"),
+    )
+
+
+class CltomaStatFs(Message):
+    """Cluster-wide space totals (statfs(2) backing; ref CLTOMA_FUSE_STATFS
+    in src/protocol/MFSCommunication.h)."""
+
+    MSG_TYPE = 1005
+    FIELDS = (("req_id", "u32"),)
+
+
+class MatoclStatFsReply(Message):
+    MSG_TYPE = 1007
+    FIELDS = (
+        ("req_id", "u32"),
+        ("status", "u8"),
+        ("total_space", "u64"),
+        ("avail_space", "u64"),
+        ("inodes", "u32"),
+    )
+
+
+class CltomaTapeInfo(Message):
+    """Tape-copy state of a file (matotsserv.cc / tape goal support)."""
+
+    MSG_TYPE = 1009
+    FIELDS = (("req_id", "u32"), ("inode", "u32"))
+
+
+class MatoclTapeInfoReply(Message):
+    MSG_TYPE = 1015
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("json", "str"))
+
+
+class CltomaTapeDemote(Message):
+    """Demote a file to the tape tier: with a fresh archival copy the
+    master frees its chunk data and marks the inode tape-only;
+    otherwise it force-queues an archive (even without a $tape goal)
+    and replies CHUNK_BUSY so the caller retries after the copy
+    lands. Driven by the master's own lifecycle scanner and by the S3
+    gateway / admin tooling."""
+
+    MSG_TYPE = 1077
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class CltomaTapeRecall(Message):
+    """Recall a demoted file from the tape tier: the master streams the
+    archived content back through a registered tape server and replies
+    once the file is readable again (OK immediately when the inode is
+    not demoted). Bounded server-side; callers put it under their own
+    deadline too."""
+
+    MSG_TYPE = 1078
+    FIELDS = (("req_id", "u32"), ("inode", "u32"))
+
+
+class CltomaGetQuota(Message):
+    MSG_TYPE = 1046
+    FIELDS = (("req_id", "u32"), ("uid", "u32"), ("gids", "list:u32"))
+
+
+class MatoclQuotaReply(Message):
+    MSG_TYPE = 1047
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("json", "str"))
+
+
+class CltomaLockOp(Message):
+    """POSIX byte-range lock / flock / test (op: 0=posix 1=flock 2=test)."""
+
+    MSG_TYPE = 1048
+    FIELDS = (
+        ("req_id", "u32"),
+        ("op", "u8"),
+        ("inode", "u32"),
+        ("token", "u64"),  # per-session owner discriminator (fd/pid)
+        ("start", "u64"),
+        ("end", "u64"),  # 0 = EOF/whole file
+        ("ltype", "u8"),  # 0=unlock 1=shared 2=exclusive
+        ("wait", "bool"),
+    )
+
+
+class MatoclLockReply(Message):
+    MSG_TYPE = 1049
+    FIELDS = (("req_id", "u32"), ("status", "u8"))  # LOCKED = queued/denied
+
+
+class MatoclLockGranted(Message):
+    """Push: a previously queued lock was granted."""
+
+    MSG_TYPE = 1050
+    FIELDS = (("inode", "u32"), ("token", "u64"))
+
+
+class MatoclCacheInvalidate(Message):
+    """Push: another session mutated this file — drop cached blocks.
+
+    ``chunk_index == 0xFFFFFFFF`` means the whole inode. Analog of the
+    reference master's data-cache invalidation to mounts (reference:
+    src/master/matoclserv.cc client service; mounts revalidate via the
+    fs_readchunk version, src/mount/mastercomm.h:67)."""
+
+    MSG_TYPE = 1067
+    SKEW_TOLERANT_FROM = 2
+    FIELDS = (
+        ("inode", "u32"),
+        ("chunk_index", "u32"),
+        # the mutation's changelog position (trailing, skew-tolerant):
+        # raises the client's monotonic-reads floor so a post-push read
+        # routed to a still-lagging replica is detected as stale and
+        # retried through the primary
+        ("meta_version", "u64"),
+    )
+
+
+class CltomaOpen(Message):
+    """Register an open file handle: while any session holds one, the
+    file survives losing its last name ("reserved"/sustained files,
+    reference: src/master/filesystem_node_types.h trash & reserved
+    namespaces; sessions carry open files in sessions.mfs).
+
+    ``handle`` is a client-chosen unique id: the client's master RPC
+    layer transparently retries over a reconnect, and acquire is not
+    idempotent — the master dedupes on (session, handle) so a
+    lost-reply retry can't double-count the ref."""
+
+    MSG_TYPE = 1068
+    FIELDS = (("req_id", "u32"), ("inode", "u32"), ("handle", "u64"))
+
+
+class CltomaRelease(Message):
+    """Drop one open handle; the last release of a sustained file frees
+    its data. ``handle`` matches the open — the master only releases a
+    handle it has registered, so a retried release can't double-drop."""
+
+    MSG_TYPE = 1069
+    FIELDS = (("req_id", "u32"), ("inode", "u32"), ("handle", "u64"))
+
+
+class CltomaSetAcl(Message):
+    """Set/clear POSIX ACLs; json = {"access": {...}|null,
+    "default": {...}|null} (see master/acl.py dict shape). Only the
+    file's owner or root may change ACLs."""
+
+    MSG_TYPE = 1056
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("json", "str"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class CltomaGetAcl(Message):
+    MSG_TYPE = 1058
+    FIELDS = (("req_id", "u32"), ("inode", "u32"))
+
+
+class MatoclAclReply(Message):
+    MSG_TYPE = 1059
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("json", "str"))
+
+
+class CltomaSetRichAcl(Message):
+    """Set/clear an NFSv4-style RichACL; json = {"aces": [...]} (see
+    master/richacl.py dict shape) or null to clear. Owner/root only.
+    A RichACL takes precedence over POSIX ACLs on the inode."""
+
+    MSG_TYPE = 1064
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("json", "str"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class CltomaGetRichAcl(Message):
+    MSG_TYPE = 1065
+    FIELDS = (("req_id", "u32"), ("inode", "u32"))
+
+
+class CltomaGoodbye(Message):
+    """Clean session end: locks release immediately. An ABRUPT
+    disconnect (no goodbye) keeps held locks for the master's grace
+    window so a reconnecting client reclaims them."""
+
+    MSG_TYPE = 1066
+    FIELDS = (("req_id", "u32"),)
+
+
+class CltomaSessionStats(Message):
+    """Periodic per-session workload summary push (gateway -> master).
+
+    Protocol gateways (NFS/S3) serve MANY protocol clients through ONE
+    cluster session; the master sees that session's RPC stream but not
+    the protocol-level op mix behind it. Every few seconds the gateway
+    pushes its local :class:`~lizardfs_tpu_torch.runtime.accounting.SessionOps`
+    top-K summary (plus role/endpoint info) as ``stats_json`` so the
+    master's cluster-wide ``top`` rollup names what each front door is
+    actually doing — the cluster analog of the per-mount ``.stats``
+    magic file. Fire-and-forget semantics at the caller (a missed push
+    costs one refresh interval); answered with MatoclStatusReply. Old
+    masters never see the verb (new type id); the trailing ``trace_id``
+    follows the tracing convention."""
+
+    MSG_TYPE = 1079
+    SKEW_TOLERANT_FROM = 2
+    FIELDS = (
+        ("req_id", "u32"),
+        ("stats_json", "str"),
+        ("trace_id", "u64"),
+    )
+
+
+class CltomaAccess(Message):
+    """Permission probe: can (uid, gid) access inode with mask r4/w2/x1?
+    Evaluated against the inode's RichACL when one is set, else mode
+    bits + POSIX ACLs (access(2) analog)."""
+
+    MSG_TYPE = 1060
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+        ("mask", "u8"),
+    )
+
+
+class CltomaIoLimitRequest(Message):
+    """Request/renew a bandwidth allocation (globaliolimits analog:
+    the master divides the cluster budget among limited sessions).
+
+    ``group`` is the requester's cgroup limit group (reference:
+    src/mount/io_limit_group.cc classification); "" means
+    unclassified. With per-group limits configured, the master matches
+    the group against its configured prefixes and divides that group's
+    budget among the sessions renewing under it. ``probe=1`` asks only
+    whether limits are configured (``limits_active``) WITHOUT joining
+    the allocation table — connect-time probes must not dilute real
+    consumers' shares for a renew period."""
+
+    # ``group``/``probe`` were added after v0 — a version-skewed peer
+    # that omits them means "" / no-probe; ``req_id`` stays required
+    MSG_TYPE = 1062
+    SKEW_TOLERANT_FROM = 1
+    FIELDS = (("req_id", "u32"), ("group", "str"), ("probe", "u8"))
+
+
+class MatoclIoLimitReply(Message):
+    """``subsystem`` tells clients which cgroup hierarchy to classify
+    callers with ("" = v2 unified / classification off) — served from
+    master config so mounts need no local limits file.
+
+    Only ``subsystem``/``limits_active`` are skew-optional (additive
+    hints an older master omits, meaning "no classification, no limits
+    configured" — exactly their zero values); a reply cut before the
+    verdict-bearing v0 fields (status, bytes_per_sec, renew_ms) is
+    corruption and still fails the parse."""
+
+    MSG_TYPE = 1063
+    SKEW_TOLERANT_FROM = 4
+    FIELDS = (
+        ("req_id", "u32"),
+        ("status", "u8"),
+        ("bytes_per_sec", "u64"),  # 0 = unlimited (for THIS group)
+        ("renew_ms", "u32"),
+        ("subsystem", "str"),
+        # 1 if ANY limit is configured cluster-wide: consumers with
+        # unthrottled fast paths (FUSE native read pool) must route
+        # through the throttled path whenever this is set — their own
+        # group being unlimited says nothing about their callers'
+        ("limits_active", "u8"),
+    )
+
+
+class CltomaTrashList(Message):
+    MSG_TYPE = 1052
+    FIELDS = (("req_id", "u32"), ("uid", "u32"))
+
+
+class MatoclTrashList(Message):
+    MSG_TYPE = 1053
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("json", "str"))
+
+
+class CltomaUndelete(Message):
+    MSG_TYPE = 1054
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("uid", "u32"),
+    )
+
+
+class CltomaFileRepair(Message):
+    """Repair a file with unrecoverable chunks (src/tools/file_repair.cc
+    analog): version-fix chunks whose only surviving parts are at a
+    stale version, zero-fill chunks with no parts at all, and route
+    still-repairable (readable) chunks through the RebuildEngine rather
+    than zeroing them."""
+
+    MSG_TYPE = 1072
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+class MatoclFileRepair(Message):
+    """Repair verdict: json carries {"repaired_versions", "zeroed",
+    "queued_rebuild", "ok_chunks"} counts."""
+
+    MSG_TYPE = 1073
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("json", "str"))
+
+
+class CltomaAppendChunks(Message):
+    """O(1) chunk-level concatenation (src/tools/append_file.cc
+    analog): pad ``inode_dst`` to a chunk boundary and share
+    ``inode_src``'s chunks onto its tail via the snapshot refcount
+    machinery (COW on later writes)."""
+
+    MSG_TYPE = 1074
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode_dst", "u32"),
+        ("inode_src", "u32"),
+        ("uid", "u32"),
+        ("gids", "list:u32"),
+    )
+
+
+# --------------------------------------------------------------------------
+# chunkserver <-> master
+# --------------------------------------------------------------------------
+
+
+class CstomaRegister(Message):
+    """``mirror`` (trailing, skew-tolerant): 1 = a PASSIVE location
+    report to a shadow master (the shadow records parts so replica
+    locates have locations; no commands ever flow on the link). The
+    active master refuses mirror registrations (a command-less link
+    must never be mistaken for a command link) and shadows refuse
+    non-mirror ones (a chunkserver's main link must keep cycling to
+    the active). Old peers send 0 = normal registration.
+
+    ``epoch`` (trailing, skew-tolerant): the highest cluster fencing
+    epoch the chunkserver has observed. An active master with a LOWER
+    epoch refuses the registration and steps down — the chunkserver is
+    telling it a later election happened. 0 = pre-HA peer."""
+
+    MSG_TYPE = 1100
+    SKEW_TOLERANT_FROM = 7
+    FIELDS = (
+        ("req_id", "u32"),
+        ("addr", "msg:Addr"),
+        ("label", "str"),
+        ("chunks", "list:msg:ChunkPartInfo"),
+        ("total_space", "u64"),
+        ("used_space", "u64"),
+        # native C++ data-plane listener port (0 = none; data ops then
+        # go to the control port's asyncio server)
+        ("data_port", "u16"),
+        ("mirror", "u8"),
+        ("epoch", "u64"),
+    )
+
+
+class MatocsRegisterReply(Message):
+    """Registration / heartbeat ack to a chunkserver.
+
+    ``qos_json`` (trailing, skew-tolerant): the master's current QoS
+    data-plane config for this chunkserver — session->tenant map,
+    tenant weights, in-flight byte budget, optional per-session native
+    pacing — refreshed on every heartbeat ack so weights/limits changed
+    live (admin `qos` / SIGHUP) propagate within one heartbeat. Old
+    peers send/receive "" and stay unthrottled (fail-open: QoS degrades
+    to the pre-QoS behavior, never to a lockout).
+
+    ``epoch`` (trailing, skew-tolerant): the replying master's cluster
+    fencing epoch — stamped on registration AND heartbeat acks (mirror
+    acks included), so a chunkserver learns of a promotion within one
+    heartbeat and fences its stale command link. Old masters send 0."""
+
+    MSG_TYPE = 1101
+    SKEW_TOLERANT_FROM = 3
+    FIELDS = (
+        ("req_id", "u32"), ("status", "u8"), ("cs_id", "u32"),
+        ("qos_json", "str"), ("epoch", "u64"),
+    )
+
+
+class CstomaHeartbeat(Message):
+    """``health_json`` (trailing, skew-tolerant): the chunkserver's
+    health snapshot (runtime/slo.py health_from — SLO burn, stall
+    hits, span drops, disk errors) folded into the heartbeat so the
+    master's cluster `health` rollup needs no extra link; an old peer
+    sends/receives "" and reads as health-unknown.
+
+    ``heat_json`` (trailing, skew-tolerant): the chunkserver's top-K
+    per-chunk heat fold — ``{"chunks": [[chunk_id, ops, bytes], ...]}``
+    accumulated since the last heartbeat — feeding the master's heat
+    tracker (master/heat.py). "" when LZ_HEAT is off (heartbeats stay
+    byte-identical to the pre-heat wire) or from an old peer, which
+    reads as no data-plane heat observed.
+
+    ``epoch`` (trailing, skew-tolerant): the chunkserver's highest
+    observed fencing epoch, echoed back at the master on every beat —
+    a deposed ex-primary hears about the election it lost from its own
+    chunkservers and steps down. 0 = pre-HA peer."""
+
+    MSG_TYPE = 1102
+    SKEW_TOLERANT_FROM = 4
+    FIELDS = (
+        ("req_id", "u32"),
+        ("cs_id", "u32"),
+        ("total_space", "u64"),
+        ("used_space", "u64"),
+        ("health_json", "str"),
+        ("heat_json", "str"),
+        ("epoch", "u64"),
+    )
+
+
+class CstomaChunkDamaged(Message):
+    MSG_TYPE = 1104
+    FIELDS = (("cs_id", "u32"), ("chunks", "list:msg:ChunkPartInfo"))
+
+
+class CstomaChunkLost(Message):
+    MSG_TYPE = 1105
+    FIELDS = (("cs_id", "u32"), ("chunks", "list:msg:ChunkPartInfo"))
+
+
+class CstomaChunkNew(Message):
+    """Report parts gained (e.g. after replication)."""
+
+    MSG_TYPE = 1106
+    FIELDS = (("cs_id", "u32"), ("chunks", "list:msg:ChunkPartInfo"))
+
+
+class MatocsCreateChunk(Message):
+    MSG_TYPE = 1110
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("version", "u32"),
+        ("part_id", "u32"),
+    )
+
+
+class MatocsDeleteChunk(Message):
+    MSG_TYPE = 1112
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("version", "u32"),
+        ("part_id", "u32"),
+    )
+
+
+class MatocsSetVersion(Message):
+    MSG_TYPE = 1114
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("old_version", "u32"),
+        ("new_version", "u32"),
+        ("part_id", "u32"),
+    )
+
+
+class MatocsReplicate(Message):
+    """Recover/copy a part from source parts (EC recovery engine).
+
+    ``trace_id`` (trailing, skew-tolerant): the RebuildEngine's
+    per-rebuild trace — the executing chunkserver records its
+    replication span under the same id so `trace-dump` renders the
+    master-scheduler + chunkserver-executor timeline as one rebuild;
+    old peers decode/serve trace 0 = untraced."""
+
+    MSG_TYPE = 1116
+    SKEW_TOLERANT_FROM = 5
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("version", "u32"),
+        ("part_id", "u32"),
+        ("sources", "list:msg:PartLocation"),
+        ("trace_id", "u64"),
+    )
+
+
+class MatocsTruncateChunk(Message):
+    MSG_TYPE = 1118
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("old_version", "u32"),
+        ("new_version", "u32"),
+        ("part_id", "u32"),
+        ("chunk_length", "u32"),  # length of the whole chunk, not the part
+    )
+
+
+class MatocsDuplicateChunk(Message):
+    """Duplicate a part locally under a new chunk id (snapshot COW)."""
+
+    MSG_TYPE = 1122
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),  # new chunk id
+        ("version", "u32"),  # new version
+        ("part_id", "u32"),
+        ("src_chunk_id", "u64"),
+        ("src_version", "u32"),
+    )
+
+
+class CstomaChunkOpStatus(Message):
+    """Ack for any master->CS chunk command."""
+
+    MSG_TYPE = 1120
+    FIELDS = (
+        ("req_id", "u32"),
+        ("status", "u8"),
+        ("chunk_id", "u64"),
+        ("part_id", "u32"),
+    )
+
+
+# --------------------------------------------------------------------------
+# data plane: client/peer <-> chunkserver
+# --------------------------------------------------------------------------
+
+
+class CltocsRead(Message):
+    # trailing ``trace_id`` (optional, skew-tolerant): the native C
+    # data plane reads it as an optional trailing u64 past the fixed
+    # 28-byte body (native/wire.h trace contract); peers predating it
+    # decode/serve as trace 0.
+    # trailing ``session_id`` (optional, skew-tolerant): the master-
+    # issued session of the originating client, feeding the
+    # chunkserver's per-session op accounting (runtime/accounting.py);
+    # the native server reads fixed offsets and ignores the longer
+    # body, old peers send/serve 0 = unattributed
+    MSG_TYPE = 1200
+    SKEW_TOLERANT_FROM = 6
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("version", "u32"),
+        ("part_id", "u32"),
+        ("offset", "u32"),
+        ("size", "u32"),
+        ("trace_id", "u64"),
+        ("session_id", "u64"),
+    )
+
+
+class CltocsPrefetch(Message):
+    """Hint: the client will read this range soon — pull it into the
+    page cache (LIZ_CLTOCS_PREFETCH analog). No reply."""
+
+    MSG_TYPE = 1205
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("version", "u32"),
+        ("part_id", "u32"),
+        ("offset", "u32"),
+        ("size", "u32"),
+    )
+
+
+class CltocsReadBulk(Message):
+    """Bulk read: the whole range comes back in ONE reply frame with a
+    per-block CRC table, so the server can sendfile() the data region
+    and the receiver can land bytes directly in the destination buffer.
+    ``offset`` must be 64 KiB-block-aligned."""
+
+    # trailing ``trace_id`` + ``session_id``: see CltocsRead
+    MSG_TYPE = 1206
+    SKEW_TOLERANT_FROM = 6
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("version", "u32"),
+        ("part_id", "u32"),
+        ("offset", "u32"),
+        ("size", "u32"),
+        ("trace_id", "u64"),
+        ("session_id", "u64"),
+    )
+
+
+class CstoclReadBulkData(Message):
+    """Reply to CltocsReadBulk: piece CRCs (one per touched block; the
+    trailing partial piece's CRC covers the bytes as transmitted) + the
+    raw range. Integrity is verified by the RECEIVER — the sender vouches
+    only for its stored CRC table (the periodic chunk tester still
+    verifies server-side)."""
+
+    MSG_TYPE = 1207
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("status", "u8"),
+        ("offset", "u32"),
+        ("crcs", "list:u32"),
+        ("data", "bytes"),
+    )
+
+
+class CstoclReadData(Message):
+    """One 64 KiB-aligned piece with its CRC (cstocl READ_DATA)."""
+
+    MSG_TYPE = 1201
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("offset", "u32"),
+        ("crc", "u32"),
+        ("data", "bytes"),
+    )
+
+
+class CstoclReadStatus(Message):
+    MSG_TYPE = 1202
+    FIELDS = (("req_id", "u32"), ("chunk_id", "u64"), ("status", "u8"))
+
+
+class CltocsWriteInit(Message):
+    """Open a write chain: this CS stores the part and forwards to the
+    rest of the chain (cltocs WRITE_INIT, network_worker_thread.cc:574)."""
+
+    # trailing ``trace_id``: carries the request trace into the data
+    # plane for the whole write session (both the asyncio server and
+    # serve_native.cpp read it; peers predating it serve as trace 0).
+    # trailing ``session_id``: attributes the whole write session to
+    # its originating client session (per-session op accounting);
+    # relayed down the chain, 0 = unattributed legacy peer
+    MSG_TYPE = 1210
+    SKEW_TOLERANT_FROM = 6
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("version", "u32"),
+        ("part_id", "u32"),
+        ("chain", "list:msg:PartLocation"),  # remaining chain after this CS
+        ("create", "bool"),  # create part if absent (first write)
+        ("trace_id", "u64"),
+        ("session_id", "u64"),
+    )
+
+
+class CltocsWriteData(Message):
+    MSG_TYPE = 1211
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("write_id", "u32"),
+        ("block", "u32"),  # block index within the part
+        ("offset", "u32"),  # offset within the block
+        ("crc", "u32"),  # CRC of this piece
+        ("data", "bytes"),
+    )
+
+
+class CltocsWriteBulk(Message):
+    """Bulk write: one frame carries a block-aligned range with one CRC
+    per touched 64 KiB piece; ONE CstoclWriteStatus acks the whole range
+    (vs one ack per piece). Chain forwarding relays the frame verbatim."""
+
+    MSG_TYPE = 1214
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("write_id", "u32"),
+        ("part_offset", "u32"),  # must be 64 KiB-aligned
+        ("crcs", "list:u32"),
+        ("data", "bytes"),
+    )
+
+
+class CltocsWriteBulkPart(Message):
+    """Part-addressed bulk write: the 1214 layout plus the target
+    ``part_id``, so several parts of one chunk can multiplex a single
+    connection (the vectored scatter path shares one connection per
+    chunkserver; write sessions demux on (chunk_id, part_id))."""
+
+    MSG_TYPE = 1215
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("write_id", "u32"),
+        ("part_id", "u32"),
+        ("part_offset", "u32"),  # must be 64 KiB-aligned
+        ("crcs", "list:u32"),
+        ("data", "bytes"),
+    )
+
+
+class CltocsShmInit(Message):
+    """Negotiate a same-host shared-memory part ring on this data-plane
+    connection: the client created a memfd segment of ``seg_size`` bytes
+    and attaches its fd as SCM_RIGHTS ancillary data on the sendmsg that
+    carries this frame (abstract-UDS connections only, riding the
+    SO_PEERCRED gate in native/wire.h). ``pid``/``mem_fd`` name the same
+    segment as ``/proc/<pid>/fd/<mem_fd>`` so a receiver that cannot
+    take the ancillary fd (the asyncio fallback chunkserver reads
+    through StreamReader, which drops cmsgs) can still map it — the
+    /proc open enforces the same same-uid gate. Acked with a
+    CstoclWriteStatus (chunk_id/write_id 0); any non-OK status leaves
+    the connection on the socket-copy path."""
+
+    MSG_TYPE = 1216
+    FIELDS = (
+        ("req_id", "u32"),
+        ("pid", "u32"),
+        ("mem_fd", "u32"),
+        ("seg_size", "u64"),
+    )
+
+
+class CltocsShmWritePart(Message):
+    """Shared-memory part descriptor: the payload already sits in the
+    connection's negotiated ring segment at ``ring_off`` — this frame
+    carries only addressing + per-64KiB-piece CRCs, so the send phase
+    moves tens of bytes instead of megabytes. Demuxed on
+    (chunk_id, part_id) like CltocsWriteBulkPart and acked by the same
+    CstoclWriteStatus, FIFO per connection (the windowed client's ack
+    collector handles both frame kinds identically)."""
+
+    MSG_TYPE = 1217
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("write_id", "u32"),
+        ("part_id", "u32"),
+        ("part_offset", "u32"),  # must be 64 KiB-aligned
+        ("ring_off", "u64"),  # payload offset inside the ring segment
+        ("length", "u32"),
+        ("crcs", "list:u32"),
+    )
+
+
+class CstoclWriteStatus(Message):
+    """Per-write ack, flows back up the chain."""
+
+    MSG_TYPE = 1212
+    FIELDS = (
+        ("req_id", "u32"),
+        ("chunk_id", "u64"),
+        ("write_id", "u32"),
+        ("status", "u8"),
+    )
+
+
+class CltocsWriteEnd(Message):
+    MSG_TYPE = 1213
+    FIELDS = (("req_id", "u32"), ("chunk_id", "u64"))
+
+
+# --------------------------------------------------------------------------
+# metalogger / shadow <-> master
+# --------------------------------------------------------------------------
+
+
+class MltomaRegister(Message):
+    # trailing ``epoch``: the follower's highest observed fencing epoch
+    # (HA failover). An active master with a lower epoch refuses the
+    # follow link and steps down — it was superseded. 0 = pre-HA peer.
+    MSG_TYPE = 1300
+    SKEW_TOLERANT_FROM = 2
+    FIELDS = (("req_id", "u32"), ("version_known", "u64"),
+              ("epoch", "u64"))
+
+
+class MatomlRegisterReply(Message):
+    # trailing ``epoch``: the serving master's fencing epoch. A
+    # follower that already knows a HIGHER epoch treats this "active"
+    # as a zombie and keeps cycling its address list. 0 = pre-HA peer.
+    MSG_TYPE = 1304
+    SKEW_TOLERANT_FROM = 3
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("version", "u64"),
+              ("epoch", "u64"))
+
+
+class MatomlChangelogLine(Message):
+    """Streamed changelog entry (matoml broadcast_logstring analog)."""
+
+    MSG_TYPE = 1301
+    FIELDS = (("version", "u64"), ("line", "str"))
+
+
+class MltomaDownloadImage(Message):
+    MSG_TYPE = 1302
+    FIELDS = (("req_id", "u32"),)
+
+
+class MltomaAck(Message):
+    """Shadow -> active: periodic applied-position report. The active
+    folds per-shadow replication lag (its own changelog position minus
+    the acked ``version``) into ``lizardfs-admin health`` and the
+    ``shadow_lag`` gauge. ``serving`` says whether the shadow is
+    serving replica reads (LZ_SHADOW_READS)."""
+
+    MSG_TYPE = 1305
+    FIELDS = (("version", "u64"), ("serving", "u8"))
+
+
+class MatomlImage(Message):
+    MSG_TYPE = 1303
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("version", "u64"), ("image", "bytes"))
+
+
+# --------------------------------------------------------------------------
+# admin
+# --------------------------------------------------------------------------
+
+
+class AdminInfo(Message):
+    MSG_TYPE = 1400
+    FIELDS = (("req_id", "u32"),)
+
+
+class AdminInfoReply(Message):
+    MSG_TYPE = 1401
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("json", "str"))
+
+
+class AdminCommand(Message):
+    """Generic admin command with JSON payload (list-chunkservers,
+    chunks-health, save-metadata, promote-shadow, ...)."""
+
+    MSG_TYPE = 1402
+    FIELDS = (("req_id", "u32"), ("command", "str"), ("json", "str"))
+
+
+class AdminReply(Message):
+    MSG_TYPE = 1403
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("json", "str"))
+
+
+# --------------------------------------------------------------------------
+# tape server link (matotsserv.cc analog): tape servers register with
+# the master and archive whole files for goals carrying a $tape slice
+
+
+class TstomaRegister(Message):
+    """``session_id`` (trailing, skew-tolerant; 0 = unknown) names the
+    tape server's own cluster-client session, so the master can scope
+    the demoted-file write guard to exactly the recalling session
+    instead of standing it down for everyone mid-recall."""
+
+    MSG_TYPE = 1500
+    SKEW_TOLERANT_FROM = 3
+    FIELDS = (
+        ("req_id", "u32"),
+        ("label", "str"),
+        ("capacity", "u64"),
+        ("session_id", "u32"),
+    )
+
+
+class MatotsRegisterReply(Message):
+    MSG_TYPE = 1501
+    FIELDS = (("req_id", "u32"), ("status", "u8"), ("ts_id", "u32"))
+
+
+class MatotsPutFile(Message):
+    """Master -> tape server: archive this file's current content.
+    ``length``/``mtime`` stamp the content version; the ack echoes them
+    so the master can detect a concurrent modification."""
+
+    MSG_TYPE = 1502
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("path", "str"),
+        ("length", "u64"),
+        ("mtime", "u32"),
+    )
+
+
+class TstomaPutDone(Message):
+    MSG_TYPE = 1503
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("status", "u8"),
+        ("length", "u64"),
+        ("mtime", "u32"),
+    )
+
+
+class MatotsDeleteFile(Message):
+    """Master -> tape server: reclaim archives of ``inode``. A zero
+    (keep_mtime, keep_length) deletes every version; otherwise the
+    matching archive is kept and stale versions are removed."""
+
+    MSG_TYPE = 1504
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("keep_mtime", "u32"),
+        ("keep_length", "u64"),
+    )
+
+
+class MatotsRecallFile(Message):
+    """Master -> tape server: write the archived content version
+    (``length``/``mtime`` pick the exact archive file) back into the
+    live file through the tape server's cluster client session. Sent
+    only while the master has the inode in recall-inflight state, so
+    the write guard on demoted files stands down for it."""
+
+    MSG_TYPE = 1505
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("path", "str"),
+        ("length", "u64"),
+        ("mtime", "u32"),
+    )
+
+
+class TstomaRecallDone(Message):
+    """Tape server -> master: recall finished; ``length``/``mtime``
+    echo the archive stamp actually restored (the master refuses a
+    stamp it did not ask for)."""
+
+    MSG_TYPE = 1506
+    FIELDS = (
+        ("req_id", "u32"),
+        ("inode", "u32"),
+        ("status", "u8"),
+        ("length", "u64"),
+        ("mtime", "u32"),
+    )

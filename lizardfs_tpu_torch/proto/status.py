@@ -1,7 +1,6 @@
 """Status codes shared across the protocol (MFS-style, one byte).
 
-The port's copy of the JAX package's ``proto/status.py``, its codes and
-``name`` only (tests pin the two together). Semantic mirror of the reference's LIZARDFS_STATUS_* / LIZARDFS_ERROR_*
+Semantic mirror of the reference's LIZARDFS_STATUS_* / LIZARDFS_ERROR_*
 space (src/protocol/MFSCommunication.h): 0 = OK, small ints = errors.
 """
 
@@ -50,3 +49,17 @@ _NAMES = {v: k for k, v in list(globals().items()) if isinstance(v, int)}
 
 def name(code: int) -> str:
     return _NAMES.get(code, f"status_{code}")
+
+
+class StatusError(Exception):
+    """Raised by clients when an RPC returns a non-OK status.
+
+    ``retry_after_ms``: the server's backoff hint on BUSY sheds (0 =
+    none given); carried so the client's busy-retry loop can honor it
+    without re-parsing the reply."""
+
+    def __init__(self, code: int, context: str = "",
+                 retry_after_ms: int = 0):
+        self.code = code
+        self.retry_after_ms = retry_after_ms
+        super().__init__(f"{name(code)}{(': ' + context) if context else ''}")

@@ -1,0 +1,561 @@
+"""In-process time-series metrics — the charts subsystem, modernized.
+
+The reference keeps RRD-like fixed-range in-memory series per daemon and
+renders them to GIF/CSV over the admin protocol (reference:
+src/common/charts.cc, chartsdata.cc registrations). Same data model
+here — counters and gauges sampled into fixed-size rings at five
+resolutions spanning two minutes to three months — exported as JSON over
+the admin link instead of server-rendered images.
+
+Derived series reproduce the reference's chart calc ops (reference:
+src/common/charts.h:26-42 CHARTS_CALC / ADD/SUB/MIN/MAX/MUL/DIV and
+charts.cc get_dataf): an RPN expression over series names and constants,
+evaluated elementwise at any resolution, either ad hoc
+(:meth:`Metrics.eval_rpn`) or registered by name
+(:meth:`Metrics.define`) so it exports like a first-class series.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+
+# (name, sampling period s, ring length) — spans: 2 min, 3 h, 1 day,
+# 1 week, 3 months (the reference's short/medium/long/verylong ranges,
+# charts.cc RANGE sampling)
+RESOLUTIONS = (
+    ("sec", 1.0, 120),
+    ("min", 60.0, 180),
+    ("tenmin", 600.0, 144),
+    ("hour", 3600.0, 168),
+    ("day", 86400.0, 92),
+)
+
+RESOLUTION_NAMES = tuple(r[0] for r in RESOLUTIONS)
+
+RPN_OPS = ("ADD", "SUB", "MUL", "DIV", "MIN", "MAX")
+
+
+def _prom_name(name: str) -> str:
+    """Series name -> valid Prometheus metric-name fragment."""
+    return "".join(
+        c if c.isalnum() or c == "_" else "_" for c in name
+    )
+
+
+def _prom_value(v: float) -> str:
+    # integral values print without the trailing ".0" scrapers choke on
+    # less often than one would hope
+    f = float(v)
+    return str(int(f)) if f.is_integer() else repr(f)
+
+
+def _prom_help(text: str) -> str:
+    """Escape a HELP string per exposition format 0.0.4 (backslash and
+    line feed are the only escapes on HELP lines)."""
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+class Series:
+    def __init__(self, name: str, kind: str = "counter"):
+        self.name = name
+        self.kind = kind  # counter: rate per tick; gauge: last value
+        self.total = 0.0
+        self.value = 0.0  # gauges
+        self._rings = {
+            rname: deque(maxlen=size) for rname, _, size in RESOLUTIONS
+        }
+        self._last_total = {rname: 0.0 for rname, _, _ in RESOLUTIONS}
+        self._last_ts = {rname: 0.0 for rname, _, _ in RESOLUTIONS}
+
+    def inc(self, n: float = 1.0) -> None:
+        self.total += n
+
+    def set(self, v: float) -> None:
+        self.value = v
+
+    def sample(self, now: float) -> None:
+        for rname, period, _ in RESOLUTIONS:
+            if now - self._last_ts[rname] >= period:
+                if self.kind == "counter":
+                    self._rings[rname].append(self.total - self._last_total[rname])
+                    self._last_total[rname] = self.total
+                else:
+                    self._rings[rname].append(self.value)
+                self._last_ts[rname] = now
+
+    def to_dict(self, resolution: str = "sec") -> dict:
+        return {
+            "name": self.name,
+            "kind": self.kind,
+            "total": self.total if self.kind == "counter" else self.value,
+            "resolution": resolution,
+            "points": list(self._rings.get(resolution, ())),
+        }
+
+
+class Timing:
+    """Latency histogram with log2 buckets (request_log.h scope-timing
+    analog): record() costs one int_log2 + two adds; export gives
+    count/sum/max plus per-bucket counts for percentile estimates.
+
+    A nonzero ``trace_id`` passed to :meth:`record` becomes the
+    histogram's EXEMPLAR — the trace of the slowest recent op — so a
+    hot cell on the metrics page links straight to a ``trace-dump``
+    timeline. The exemplar decays: a newer op replaces it when it is at
+    least as slow, or when the stored one is older than a minute (a
+    one-off spike must not pin a stale id forever)."""
+
+    # bucket i covers [2^i, 2^(i+1)) microseconds; 20 buckets = 1us..1s+
+    NBUCKETS = 20
+    EXEMPLAR_TTL_S = 60.0
+
+    __slots__ = ("name", "count", "total_us", "max_us", "buckets",
+                 "exemplar_trace_id", "exemplar_us", "exemplar_ts")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        self.total_us = 0.0
+        self.max_us = 0.0
+        self.buckets = [0] * self.NBUCKETS
+        self.exemplar_trace_id = 0
+        self.exemplar_us = 0.0
+        self.exemplar_ts = 0.0
+
+    def record(self, seconds: float, trace_id: int = 0) -> None:
+        us = seconds * 1e6
+        self.count += 1
+        self.total_us += us
+        if us > self.max_us:
+            self.max_us = us
+        b = max(int(us), 1).bit_length() - 1
+        self.buckets[min(b, self.NBUCKETS - 1)] += 1
+        if trace_id:
+            now = time.monotonic()
+            if (
+                us >= self.exemplar_us
+                or now - self.exemplar_ts > self.EXEMPLAR_TTL_S
+            ):
+                self.exemplar_trace_id = trace_id
+                self.exemplar_us = us
+                self.exemplar_ts = now
+
+    def quantile_us(self, q: float) -> float:
+        """Upper-bound estimate of the q-quantile latency from the log2
+        buckets (the p99 the `top` view renders). Exact to within one
+        bucket (a factor of 2), which is the honest resolution a
+        20-bucket histogram has."""
+        if not self.count:
+            return 0.0
+        want = q * self.count
+        cum = 0
+        for i, n in enumerate(self.buckets):
+            cum += n
+            if cum >= want:
+                return float(2 ** (i + 1))
+        return self.max_us
+
+    def to_dict(self) -> dict:
+        out = {
+            "name": self.name, "kind": "timing", "count": self.count,
+            "avg_us": round(self.total_us / self.count, 1) if self.count
+            else 0.0,
+            "max_us": round(self.max_us, 1),
+            "buckets_us_log2": list(self.buckets),
+        }
+        if self.exemplar_trace_id:
+            out["exemplar_trace_id"] = f"0x{self.exemplar_trace_id:x}"
+            out["exemplar_us"] = round(self.exemplar_us, 1)
+        return out
+
+
+class PhaseBreakdown:
+    """Per-phase busy-time accounting for a multi-phase operation (the
+    client write pipeline's encode/stage/send/commit split).
+
+    Each ``add`` charges wall-clock seconds spent *inside* one phase;
+    ``add_wall`` closes one rep (one whole operation) with its end-to-end
+    time. In a serial execution the phase totals sum to ~the wall total;
+    in a pipelined execution phases overlap, so the sum legitimately
+    exceeds wall time — the gap IS the overlap win. ``snapshot`` returns
+    cumulative totals; subtract two snapshots (:func:`phase_delta`) to
+    scope the breakdown to a measured interval (bench reps)."""
+
+    __slots__ = ("name", "phase_names", "totals_s", "wall_s", "reps")
+
+    def __init__(self, name: str, phase_names: tuple[str, ...]):
+        self.name = name
+        self.phase_names = tuple(phase_names)
+        self.totals_s = {p: 0.0 for p in self.phase_names}
+        self.wall_s = 0.0
+        self.reps = 0
+
+    def add(self, phase: str, seconds: float) -> None:
+        self.totals_s[phase] += seconds
+
+    def add_wall(self, seconds: float) -> None:
+        self.wall_s += seconds
+        self.reps += 1
+
+    def snapshot(self) -> dict:
+        out = {f"{p}_ms": round(v * 1e3, 2) for p, v in self.totals_s.items()}
+        out["wall_ms"] = round(self.wall_s * 1e3, 2)
+        out["reps"] = self.reps
+        return out
+
+
+def phase_delta(after: dict, before: dict) -> dict:
+    """Elementwise ``after - before`` of two :meth:`PhaseBreakdown.snapshot`
+    dicts (same keys), rounded back to centi-ms."""
+    return {
+        k: round(after[k] - before.get(k, 0), 2) if k != "reps"
+        else after[k] - before.get(k, 0)
+        for k in after
+    }
+
+
+def _label_value(v) -> str:
+    """Sanitize a label value for the 0.0.4 exposition (quotes and
+    backslashes would need escaping; names stay simpler without them)."""
+    return "".join(
+        c if c not in '"\\\n' else "_" for c in str(v)
+    )
+
+
+# Per-family cap on distinct label combinations: a label value drawn
+# from an unbounded domain (session ids, file names) must not grow the
+# registry — and the scrape page — without bound. Past the cap, new
+# combinations fold into the same label NAMES with every value
+# "other", so totals stay truthful while cardinality stays fixed.
+LABEL_VARIANT_CAP = 256
+
+
+class Metrics:
+    def __init__(self):
+        self.series: dict[str, Series] = {}
+        self.derived: dict[str, str] = {}  # name -> RPN expression
+        self.timings: dict[str, Timing] = {}
+        # labeled counter families (faults_injected{site,action} style):
+        # family name -> {sorted (label, value) tuple -> Series}. One
+        # HELP/TYPE block per family on the Prometheus page, one sample
+        # line per label combination.
+        self.labeled: dict[str, dict[tuple, Series]] = {}
+        # labeled Timing families (session_ops{session,op} style): one
+        # HELP/TYPE histogram block per family, per-combination
+        # bucket/_sum/_count samples, trace-id exemplars on +Inf
+        self.labeled_timings: dict[str, dict[tuple, Timing]] = {}
+        # per-series HELP text (Prometheus exposition); series without
+        # an explicit entry export an auto-generated line so every
+        # scraped metric carries help (the metrics-lint contract)
+        self.help: dict[str, str] = {}
+
+    def describe(self, name: str, help: str | None) -> None:
+        if help:
+            self.help[name] = help
+
+    def help_for(self, name: str, kind: str = "series") -> str:
+        return self.help.get(name) or f"lizardfs {kind} {name}"
+
+    def timing(self, name: str, help: str | None = None) -> Timing:
+        t = self.timings.get(name)
+        if t is None:
+            t = self.timings[name] = Timing(name)
+        self.describe(name, help)
+        return t
+
+    def counter(self, name: str, help: str | None = None) -> Series:
+        s = self.series.get(name)
+        if s is None:
+            s = self.series[name] = Series(name, "counter")
+        self.describe(name, help)
+        return s
+
+    def gauge(self, name: str, help: str | None = None) -> Series:
+        s = self.series.get(name)
+        if s is None:
+            s = self.series[name] = Series(name, "gauge")
+        self.describe(name, help)
+        return s
+
+    @staticmethod
+    def _label_key(variants: dict, labels: dict) -> tuple:
+        """Sorted, sanitized (label, value) key for one combination,
+        folding NEW combinations past LABEL_VARIANT_CAP into the
+        all-"other" overflow bucket (same label names, bounded page)."""
+        key = tuple(sorted(
+            (str(k), _label_value(v)) for k, v in labels.items()
+        ))
+        if key not in variants and len(variants) >= LABEL_VARIANT_CAP:
+            key = tuple((k, "other") for k, _ in key)
+        return key
+
+    def labeled_counter(
+        self, family: str, labels: dict, help: str | None = None
+    ) -> Series:
+        """One Series per (family, label-set) combination, exported as a
+        single Prometheus counter family with per-combination samples."""
+        variants = self.labeled.setdefault(family, {})
+        key = self._label_key(variants, labels)
+        s = variants.get(key)
+        if s is None:
+            decorated = family + "{" + ",".join(
+                f'{k}="{v}"' for k, v in key
+            ) + "}"
+            s = variants[key] = Series(decorated, "counter")
+        self.describe(family, help)
+        return s
+
+    def labeled_timing(
+        self, family: str, labels: dict, help: str | None = None
+    ) -> Timing:
+        """One :class:`Timing` per (family, label-set) combination —
+        the labeled-histogram family behind per-session op accounting.
+        Exports as ONE Prometheus histogram family whose per-
+        combination ``_bucket``/``_sum``/``_count`` samples carry the
+        labels, with the slowest recent op's trace id as an OpenMetrics
+        exemplar on the ``+Inf`` bucket (so a hot cell links straight
+        to ``trace-dump``). Cardinality is bounded by
+        ``LABEL_VARIANT_CAP`` — overflow combinations fold into the
+        all-"other" bucket."""
+        variants = self.labeled_timings.setdefault(family, {})
+        key = self._label_key(variants, labels)
+        t = variants.get(key)
+        if t is None:
+            decorated = family + "{" + ",".join(
+                f'{k}="{v}"' for k, v in key
+            ) + "}"
+            t = variants[key] = Timing(decorated)
+        self.describe(family, help)
+        return t
+
+    def define(self, name: str, expr: str, help: str | None = None) -> None:
+        """Register a derived series: RPN over series names/constants,
+        e.g. ``"bytes_read bytes_written ADD"``. Validated eagerly by a
+        full evaluation (shape errors, unknown names, nesting depth)."""
+        if name in self.series:
+            raise ValueError(f"{name!r} is an existing series")
+        self.eval_rpn(expr)  # raises ValueError on malformed exprs
+        self.derived[name] = expr
+        self.describe(name, help)
+
+    def drop_labeled(self, family: str, label: str, value) -> None:
+        """Retire every variant of ``family`` (counter or timing) whose
+        label set carries ``label="value"``. Departed-session cleanup:
+        a long-lived master with session churn would otherwise fill the
+        LABEL_VARIANT_CAP with dead variants and fold every NEW
+        session into "other" — losing exactly the p99/exemplar cells
+        the `top` view exists for. Prometheus handles series
+        disappearing (same as a process restart)."""
+        pair = (str(label), _label_value(value))
+        for table in (self.labeled, self.labeled_timings):
+            variants = table.get(family)
+            if not variants:
+                continue
+            for key in [k for k in variants if pair in k]:
+                del variants[key]
+
+    def history(self, name: str, resolution: str = "sec") -> list[float]:
+        """One series' retained ring at a resolution (the metrics-
+        history view `top`/`health` trends render; [] for unknown
+        names). Counters yield per-tick rates, gauges sampled values —
+        exactly what the rings hold."""
+        s = self.series.get(name)
+        if s is None:
+            return []
+        return [float(v) for v in s._rings.get(resolution, ())]
+
+    def sample_all(self, now: float | None = None) -> None:
+        now = time.monotonic() if now is None else now
+        for s in self.series.values():
+            s.sample(now)
+        for variants in self.labeled.values():
+            for s in variants.values():
+                s.sample(now)
+
+    # --- derived-series evaluation (charts.h calc ops) -------------------
+
+    def _parse_rpn(self, expr: str) -> list[str]:
+        tokens = expr.split()
+        if not tokens:
+            raise ValueError("empty RPN expression")
+        depth = 0
+        for t in tokens:
+            if t in RPN_OPS:
+                if depth < 2:
+                    raise ValueError(f"RPN stack underflow at {t!r}")
+                depth -= 1
+            else:
+                if t not in self.series and t not in self.derived:
+                    try:
+                        float(t)
+                    except ValueError:
+                        raise ValueError(f"unknown series {t!r}") from None
+                depth += 1
+        if depth != 1:
+            raise ValueError(f"RPN leaves {depth} values on the stack")
+        return tokens
+
+    def eval_rpn(self, expr: str, resolution: str = "sec",
+                 _depth: int = 0) -> list[float]:
+        """Evaluate an RPN expression elementwise at one resolution.
+
+        Series are right-aligned (most recent sample last); a shorter
+        operand is padded with leading zeros. DIV by zero yields 0,
+        matching the reference's chart division semantics."""
+        if _depth > 8:
+            # catches definition cycles too (a cycle can only arise via
+            # redefinition; to_dict degrades that series to an error)
+            raise ValueError("derived series nested too deeply")
+        # stack entries: (is_constant, points) — only true constants
+        # broadcast; a series that happens to hold one sample right-
+        # aligns and zero-pads like any other series
+        stack: list[tuple[bool, list[float]]] = []
+        for t in self._parse_rpn(expr):
+            if t in RPN_OPS:
+                (cb, b), (ca, a) = stack.pop(), stack.pop()
+                n = max(len(a), len(b))
+                a = a * n if ca and n > 1 else [0.0] * (n - len(a)) + a
+                b = b * n if cb and n > 1 else [0.0] * (n - len(b)) + b
+                if t == "ADD":
+                    r = [x + y for x, y in zip(a, b)]
+                elif t == "SUB":
+                    r = [x - y for x, y in zip(a, b)]
+                elif t == "MUL":
+                    r = [x * y for x, y in zip(a, b)]
+                elif t == "DIV":
+                    r = [x / y if y else 0.0 for x, y in zip(a, b)]
+                elif t == "MIN":
+                    r = [min(x, y) for x, y in zip(a, b)]
+                else:  # MAX
+                    r = [max(x, y) for x, y in zip(a, b)]
+                stack.append((ca and cb, r))
+            elif t in self.series:
+                stack.append(
+                    (False,
+                     [float(v) for v in self.series[t]._rings[resolution]])
+                )
+            elif t in self.derived:
+                stack.append(
+                    (False,
+                     self.eval_rpn(self.derived[t], resolution, _depth + 1))
+                )
+            else:
+                stack.append((True, [float(t)]))
+        return stack[0][1]
+
+    def to_prometheus(self, prefix: str = "lizardfs") -> str:
+        """Prometheus text exposition (format 0.0.4) of the registry.
+
+        Counters export as ``<prefix>_<name>_total``, gauges as
+        ``<prefix>_<name>``, derived series as gauges of their most
+        recent value, and :class:`Timing` histograms as native
+        Prometheus histograms in microseconds: bucket i of the log2
+        table covers [2^i, 2^(i+1)) us, so the cumulative ``le`` bound
+        of bucket i is 2^(i+1). Served at the webui ``/metrics``
+        endpoint and over the admin link (``metrics-prom``)."""
+        lines: list[str] = []
+
+        def emit(name: str, mtype: str, value, help_text: str = "",
+                 suffix: str = "") -> None:
+            lines.append(f"# HELP {name} {_prom_help(help_text or name)}")
+            lines.append(f"# TYPE {name} {mtype}")
+            lines.append(f"{name}{suffix} {_prom_value(value)}")
+
+        for name, s in sorted(self.series.items()):
+            pname = f"{prefix}_{_prom_name(name)}"
+            if s.kind == "counter":
+                emit(pname + "_total", "counter", s.total,
+                     self.help_for(name, "counter"))
+            else:
+                emit(pname, "gauge", s.value, self.help_for(name, "gauge"))
+        for family, variants in sorted(self.labeled.items()):
+            pname = f"{prefix}_{_prom_name(family)}_total"
+            lines.append(
+                f"# HELP {pname} "
+                f"{_prom_help(self.help_for(family, 'counter'))}"
+            )
+            lines.append(f"# TYPE {pname} counter")
+            for key, s in sorted(variants.items()):
+                suffix = "{" + ",".join(f'{k}="{v}"' for k, v in key) + "}"
+                lines.append(f"{pname}{suffix} {_prom_value(s.total)}")
+        for name, expr in sorted(self.derived.items()):
+            pname = f"{prefix}_{_prom_name(name)}"
+            try:
+                points = self.eval_rpn(expr)
+            except ValueError:
+                continue  # a bad redefinition must not poison the page
+            emit(pname, "gauge", points[-1] if points else 0.0,
+                 self.help_for(name, "derived series"))
+        for name, t in sorted(self.timings.items()):
+            pname = f"{prefix}_timing_{_prom_name(name)}_us"
+            lines.append(
+                f"# HELP {pname} "
+                f"{_prom_help(self.help_for(name, 'latency histogram'))}"
+            )
+            lines.append(f"# TYPE {pname} histogram")
+            cum = 0
+            for i, n in enumerate(t.buckets):
+                cum += n
+                lines.append(f'{pname}_bucket{{le="{2 ** (i + 1)}"}} {cum}')
+            lines.append(f'{pname}_bucket{{le="+Inf"}} {t.count}')
+            lines.append(f"{pname}_sum {_prom_value(t.total_us)}")
+            lines.append(f"{pname}_count {t.count}")
+        for family, variants in sorted(self.labeled_timings.items()):
+            pname = f"{prefix}_{_prom_name(family)}_us"
+            lines.append(
+                f"# HELP {pname} "
+                f"{_prom_help(self.help_for(family, 'latency histogram'))}"
+            )
+            lines.append(f"# TYPE {pname} histogram")
+            for key, t in sorted(variants.items()):
+                lbl = ",".join(f'{k}="{v}"' for k, v in key)
+                cum = 0
+                for i, n in enumerate(t.buckets):
+                    cum += n
+                    lines.append(
+                        f'{pname}_bucket{{{lbl},le="{2 ** (i + 1)}"}} {cum}'
+                    )
+                inf = f'{pname}_bucket{{{lbl},le="+Inf"}} {t.count}'
+                if t.exemplar_trace_id:
+                    # OpenMetrics exemplar: the slowest recent op's
+                    # trace id + its latency, the hot-cell -> trace-dump
+                    # link (0.0.4-only scrapers may drop the suffix;
+                    # metrics-lint validates the syntax)
+                    inf += (
+                        f' # {{trace_id="0x{t.exemplar_trace_id:x}"}} '
+                        f"{_prom_value(round(t.exemplar_us, 1))}"
+                    )
+                lines.append(inf)
+                lines.append(f"{pname}_sum{{{lbl}}} {_prom_value(t.total_us)}")
+                lines.append(f"{pname}_count{{{lbl}}} {t.count}")
+        return "\n".join(lines) + "\n"
+
+    def to_dict(self, resolution: str = "sec") -> dict:
+        out = {
+            name: s.to_dict(resolution)
+            for name, s in sorted(self.series.items())
+        }
+        for variants in self.labeled.values():
+            for s in variants.values():
+                out[s.name] = s.to_dict(resolution)
+        for name, expr in sorted(self.derived.items()):
+            try:
+                points = self.eval_rpn(expr, resolution)
+                err = None
+            except ValueError as e:
+                # a bad redefinition must not poison the whole export
+                points, err = [], str(e)
+            out[name] = {
+                "name": name, "kind": "derived", "expr": expr,
+                "total": points[-1] if points else 0.0,
+                "resolution": resolution, "points": points,
+            }
+            if err is not None:
+                out[name]["error"] = err
+        for name, t in sorted(self.timings.items()):
+            out[f"timing.{name}"] = t.to_dict()
+        for variants in self.labeled_timings.values():
+            for t in variants.values():
+                out[f"timing.{t.name}"] = t.to_dict()
+        return out

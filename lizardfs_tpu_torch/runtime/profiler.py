@@ -1,0 +1,214 @@
+"""Always-on adaptive sampling profiler — collapsed-stack flamegraphs
+from any live daemon, with a hard overhead budget.
+
+A plain Python thread wakes on an adaptive interval, snapshots every
+thread's frame stack via ``sys._current_frames()`` (one C call, no
+tracing hooks, no sys.setprofile cost on the hot path), and collapses
+each stack into a ``mod.func;mod.func;...`` key in a bounded table.
+``collapsed()`` renders the table in the flamegraph.pl "collapsed
+stacks" text format (``stack count`` lines), dumped live via
+``lizardfs-admin <addr> profile`` or a gateway's ``GET /profile``.
+
+Self-throttling: every sample measures its own cost and re-derives the
+interval so sampling stays under ``overhead_budget`` (default 2%) of
+one core — a daemon serving a million-inode namespace pays more per
+snapshot than an idle one, so a fixed rate would be a lie on exactly
+the processes worth profiling. A FlightRecorder breach arms a
+temporary boost window (:meth:`arm_incident`) so incident captures
+carry stacks at useful resolution, still under the budget ceiling.
+
+Bounded memory: at most ``max_stacks`` distinct collapsed stacks;
+overflow folds into the ``(truncated)`` row and counts ``dropped``.
+
+Cost contract: ``LZ_PROF=0`` means the thread is never started —
+byte-equivalent to the pre-profiler tree (there are no hot-path hooks
+to disable; the only cost is the thread itself).
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+import time
+
+from lizardfs_tpu_torch.constants import env_flag
+
+_ENABLED = env_flag("LZ_PROF")
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def set_enabled(on: bool) -> None:
+    """Test/ops hook mirroring the LZ_PROF env gate."""
+    global _ENABLED
+    _ENABLED = bool(on)
+
+
+class SamplingProfiler:
+    """The sampler. start()/stop() bound the thread's life (refcounted:
+    in-process test clusters host many daemons in ONE interpreter, and
+    a profile is per-process by nature — N daemons sharing the
+    process-wide instance via :func:`process_profiler` pay for ONE
+    sampler thread, not N samplers contending on the same GIL).
+    Everything else is safe to call any time."""
+
+    # interval clamps: never hotter than 200 Hz, never colder than 4 s
+    MIN_INTERVAL_S = 0.005
+    MAX_INTERVAL_S = 4.0
+
+    def __init__(self, role: str = "", interval_s: float = 0.025,
+                 max_stacks: int = 2048, overhead_budget: float = 0.02):
+        self.role = role
+        self.base_interval_s = interval_s
+        self.max_stacks = max_stacks
+        self.overhead_budget = overhead_budget
+        self.interval_s = interval_s
+        self.samples = 0
+        self.dropped = 0
+        self.sample_cost_s = 0.0  # EWMA of one snapshot's cost
+        self._counts: dict[tuple, int] = {}
+        self._lock = threading.Lock()
+        self._stop: threading.Event | None = None
+        self._thread: threading.Thread | None = None
+        self._incident_until = 0.0
+        self._starts = 0  # refcount: stop() below start() count is a no-op
+
+    # --- lifecycle ---------------------------------------------------------
+
+    def start(self) -> None:
+        self._starts += 1
+        if not _ENABLED or self._thread is not None:
+            return
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop,
+            name=f"{self.role or 'lz'}-profiler",
+            daemon=True,
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._starts = max(self._starts - 1, 0)
+        if self._thread is None or self._starts > 0:
+            return
+        self._stop.set()
+        self._thread.join(timeout=1.0)
+        self._thread = None
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None
+
+    # --- sampling ----------------------------------------------------------
+
+    def arm_incident(self, duration_s: float = 30.0) -> None:
+        """Boost the sample rate for an incident window (called by the
+        SLO engine on a breach) so the flight-recorded capture carries
+        stacks at useful resolution. The overhead throttle still
+        applies — arming never exceeds the budget, it only stops the
+        idle back-off."""
+        self._incident_until = max(
+            self._incident_until, time.monotonic() + duration_s
+        )
+
+    def _loop(self) -> None:
+        me = threading.get_ident()
+        while not self._stop.wait(self.interval_s):
+            t0 = time.perf_counter()
+            try:
+                frames = sys._current_frames()
+            except RuntimeError:  # interpreter tearing down
+                break
+            with self._lock:
+                for ident, frame in frames.items():
+                    if ident == me:
+                        continue
+                    stack = []
+                    depth = 0
+                    while frame is not None and depth < 64:
+                        code = frame.f_code
+                        mod = code.co_filename.rpartition("/")[2]
+                        if mod.endswith(".py"):
+                            mod = mod[:-3]
+                        stack.append(f"{mod}.{code.co_name}")
+                        frame = frame.f_back
+                        depth += 1
+                    if not stack:
+                        continue
+                    key = tuple(reversed(stack))  # root first
+                    if key not in self._counts and (
+                        len(self._counts) >= self.max_stacks
+                    ):
+                        key = ("(truncated)",)
+                        self.dropped += 1
+                    self._counts[key] = self._counts.get(key, 0) + 1
+                self.samples += 1
+            cost = time.perf_counter() - t0
+            # EWMA the snapshot cost, then size the interval so
+            # cost/interval stays under the budget; incidents pin the
+            # interval at the budget-derived floor instead of letting
+            # the idle clamp stretch it
+            self.sample_cost_s = (
+                cost if not self.sample_cost_s
+                else 0.8 * self.sample_cost_s + 0.2 * cost
+            )
+            want = max(
+                self.sample_cost_s / self.overhead_budget,
+                self.MIN_INTERVAL_S,
+            )
+            if time.monotonic() >= self._incident_until:
+                want = max(want, self.base_interval_s)
+            self.interval_s = min(want, self.MAX_INTERVAL_S)
+
+    # --- output ------------------------------------------------------------
+
+    def collapsed(self, top: int | None = None) -> str:
+        """flamegraph.pl collapsed-stacks text: one ``a;b;c count``
+        line per distinct stack, heaviest first."""
+        with self._lock:
+            rows = sorted(
+                self._counts.items(), key=lambda kv: (-kv[1], kv[0])
+            )
+        if top is not None:
+            rows = rows[:top]
+        return "\n".join(f"{';'.join(k)} {n}" for k, n in rows)
+
+    def snapshot(self) -> dict:
+        """Stats header for the admin/HTTP dumps."""
+        with self._lock:
+            stacks = len(self._counts)
+        return {
+            "role": self.role,
+            "enabled": _ENABLED,
+            "running": self.running,
+            "samples": self.samples,
+            "stacks": stacks,
+            "dropped": self.dropped,
+            "interval_ms": round(self.interval_s * 1e3, 2),
+            "sample_cost_us": round(self.sample_cost_s * 1e6, 1),
+            "overhead_budget_pct": self.overhead_budget * 100,
+            "incident_armed": time.monotonic() < self._incident_until,
+        }
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts.clear()
+            self.samples = 0
+            self.dropped = 0
+
+
+# the process-wide instance every daemon/gateway shares (created on
+# first use; the role tags who registered first, purely informational)
+_PROCESS: SamplingProfiler | None = None
+
+
+def process_profiler(role: str = "") -> SamplingProfiler:
+    """The per-process shared profiler. Daemons call ``start()``/
+    ``stop()`` on it like on a private instance — the refcount keeps
+    one sampler thread alive while ANY registrant is running."""
+    global _PROCESS
+    if _PROCESS is None:
+        _PROCESS = SamplingProfiler(role=role or "process")
+    return _PROCESS

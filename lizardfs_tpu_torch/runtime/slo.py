@@ -1,0 +1,492 @@
+"""Per-op-class latency SLOs, burn-rate accounting, and the flight
+recorder that turns raw telemetry into answers.
+
+Three pieces, one module:
+
+* :class:`Objective` / :class:`SloEngine` — per-op-class latency
+  objectives (read/write/locate/replicate/nfs) with MULTI-WINDOW
+  burn-rate accounting (the SRE fast/slow window pattern: a fast
+  window catches an acute regression in seconds, the slow window
+  separates it from a blip). Burn rate = observed breach fraction
+  over the window divided by the error budget (1 - target); burn 1.0
+  means the objective is being spent exactly at the rate that
+  exhausts its budget, >1 means degrading. Objectives register
+  gauges/counters into the daemon's existing ``Metrics`` registry, so
+  burn rates and breach counts ride the Prometheus exporter and
+  charts with zero extra plumbing.
+
+* :class:`FlightRecorder` — when an op breaches its objective, its
+  merged trace timeline (``tracing.merge_timeline`` over the daemon's
+  span ring) is captured automatically: into an in-memory top-N
+  slowest-ops ring (``lizardfs-admin slowops``) and, when the daemon
+  has a disk home, into a bounded on-disk incident ring
+  (``incidents/inc_<trace_id>.json``, oldest rotated out). A slow op
+  no longer has to be caught live with ``trace-dump`` — the id in
+  ``slowops`` renders after the fact because ``trace-dump`` falls
+  back to the incident store when the span ring has moved on.
+
+* :func:`health_from` — folds an engine snapshot plus daemon-level
+  signals (stall-watchdog hits, span-ring drops, disk errors) into
+  the per-daemon health snapshot that chunkservers ship in
+  heartbeats and the master aggregates into the cluster ``health``
+  rollup.
+
+Cost contract: ``LZ_SLO=0`` (or ``set_enabled(False)``) short-circuits
+``observe()`` to a single attribute check — no ring math, no breach
+tests, no capture — and the engine registers nothing while disabled at
+construction. The bench's ec(8,4) row is the regression fiducial.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import deque
+
+from lizardfs_tpu_torch.constants import env_flag
+from lizardfs_tpu_torch.runtime import tracing
+
+_ENABLED = env_flag("LZ_SLO")
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def set_enabled(on: bool) -> None:
+    """Test/ops hook mirroring the LZ_SLO env gate."""
+    global _ENABLED
+    _ENABLED = bool(on)
+
+
+OP_CLASSES = ("read", "write", "locate", "replicate", "nfs", "s3")
+
+# objective defaults: threshold_ms is the per-op latency bound, target
+# the fraction of ops that must meet it. Deliberately loose for
+# localhost dev boxes; production tunes per class via the constructor,
+# tweaks (slo_<class>_threshold_ms), or LZ_SLO_<CLASS>_MS.
+DEFAULT_OBJECTIVES = {
+    "read": (1000.0, 0.999),
+    "write": (2000.0, 0.999),
+    "locate": (500.0, 0.999),
+    "replicate": (30000.0, 0.99),
+    "nfs": (1000.0, 0.999),
+    # object ops span one HTTP request end-to-end (a multi-MB PUT or a
+    # recall-triggering GET is one op), so the bound is looser than nfs
+    "s3": (2000.0, 0.999),
+}
+
+# burn-rate windows (seconds): fast catches acute pain, slow provides
+# the corroborating context (multiwindow alerting pattern)
+FAST_WINDOW_S = 60.0
+SLOW_WINDOW_S = 600.0
+_BUCKET_S = 5.0
+
+# health status thresholds on the FAST burn rate
+BURN_DEGRADED = 1.0
+BURN_CRITICAL = 6.0
+
+STATUS_ORDER = ("ok", "degraded", "critical")
+
+
+def worst_status(*statuses: str) -> str:
+    idx = 0
+    for s in statuses:
+        try:
+            idx = max(idx, STATUS_ORDER.index(s))
+        except ValueError:
+            idx = len(STATUS_ORDER) - 1  # unknown reads as critical
+    return STATUS_ORDER[idx]
+
+
+class _Window:
+    """Bucketed (total, breached) counts over a sliding window.
+
+    Running tallies are maintained on add/expire so :meth:`rates` is
+    O(1) amortized — it runs on every hot-path op via
+    :meth:`SloEngine.observe`, where an O(#buckets) sum would be
+    steady-state waste."""
+
+    __slots__ = ("span_s", "_buckets", "_total", "_breached")
+
+    def __init__(self, span_s: float):
+        self.span_s = span_s
+        # (bucket_epoch, total, breached), oldest first
+        self._buckets: deque = deque()
+        self._total = 0
+        self._breached = 0
+
+    def add(self, now: float, breached: bool) -> None:
+        epoch = int(now // _BUCKET_S)
+        hit = 1 if breached else 0
+        if self._buckets and self._buckets[-1][0] == epoch:
+            e, t, b = self._buckets[-1]
+            self._buckets[-1] = (e, t + 1, b + hit)
+        else:
+            self._buckets.append((epoch, 1, hit))
+        self._total += 1
+        self._breached += hit
+        self._expire(epoch)
+
+    def _expire(self, epoch: int) -> None:
+        lo = epoch - int(self.span_s // _BUCKET_S)
+        while self._buckets and self._buckets[0][0] < lo:
+            _, t, b = self._buckets.popleft()
+            self._total -= t
+            self._breached -= b
+
+    def rates(self, now: float) -> tuple[int, int]:
+        self._expire(int(now // _BUCKET_S))
+        return self._total, self._breached
+
+
+class Objective:
+    """One op class's latency objective + its burn windows."""
+
+    __slots__ = (
+        "op_class", "threshold_s", "target", "ops", "breaches",
+        "_fast", "_slow",
+    )
+
+    def __init__(self, op_class: str, threshold_ms: float, target: float):
+        self.op_class = op_class
+        self.threshold_s = threshold_ms / 1e3
+        self.target = target
+        self.ops = 0
+        self.breaches = 0
+        self._fast = _Window(FAST_WINDOW_S)
+        self._slow = _Window(SLOW_WINDOW_S)
+
+    @property
+    def budget(self) -> float:
+        return max(1.0 - self.target, 1e-6)
+
+    def observe(self, seconds: float, now: float) -> bool:
+        breached = seconds > self.threshold_s
+        self.ops += 1
+        if breached:
+            self.breaches += 1
+        self._fast.add(now, breached)
+        self._slow.add(now, breached)
+        return breached
+
+    def burn(self, now: float) -> tuple[float, float]:
+        """(fast, slow) burn rates: breach fraction over each window
+        divided by the error budget. 0 when the window saw no ops."""
+        out = []
+        for w in (self._fast, self._slow):
+            total, breached = w.rates(now)
+            out.append((breached / total / self.budget) if total else 0.0)
+        return out[0], out[1]
+
+    def status(self, now: float) -> str:
+        fast, slow = self.burn(now)
+        # the SLOW window must corroborate before we page CRITICAL —
+        # a single breach in an idle minute is a degraded signal, not
+        # a cluster emergency
+        if fast >= BURN_CRITICAL and slow > 0:
+            return "critical"
+        if fast >= BURN_DEGRADED:
+            return "degraded"
+        return "ok"
+
+
+class FlightRecorder:
+    """Top-N slowest-ops ring + bounded on-disk incident ring."""
+
+    def __init__(self, incident_dir: str | None = None,
+                 top_n: int = 16, max_incidents: int = 32):
+        self.incident_dir = incident_dir
+        self.top_n = top_n
+        self.max_incidents = max_incidents
+        # optional () -> str of collapsed stacks (runtime/profiler.py):
+        # incident files then carry WHERE the process was spending its
+        # time while the breach happened, not just the trace spans
+        self.profile_source = None
+        # slowest ops seen, sorted slowest-first, bounded to top_n
+        self._slow: list[dict] = []
+        # disk-write rate limit: capture runs synchronously on the
+        # serving loop, and a breach STORM is precisely when the disk
+        # is slow — one incident per interval keeps the recorder from
+        # amplifying the outage it exists to diagnose (the in-memory
+        # slowops ring still records every breach)
+        self.min_write_interval_s = 1.0
+        self._last_write = 0.0
+
+    def set_dir(self, path: str | None) -> None:
+        self.incident_dir = path
+
+    def record(self, op_class: str, name: str, seconds: float,
+               trace_id: int, spans: list[dict]) -> dict:
+        entry = {
+            "trace_id": trace_id,
+            "op_class": op_class,
+            "name": name,
+            "ms": round(seconds * 1e3, 3),
+            "ts": time.time(),
+            "captured": bool(spans),
+        }
+        if spans:
+            # auto-attribution: every captured breach names where its
+            # milliseconds went (queue/disk/net/compute/unattributed) —
+            # slowops rows and incident files carry it without anyone
+            # having to re-run trace-dump --attribute by hand
+            try:
+                entry["attribution"] = tracing.attribute_timeline(
+                    tracing.merge_timeline(spans, trace_id, wall_name=name)
+                )
+            except Exception:  # noqa: BLE001 — capture is best effort
+                pass
+        self._slow.append(entry)
+        self._slow.sort(key=lambda e: -e["ms"])
+        del self._slow[self.top_n:]
+        if spans and self.incident_dir and trace_id:
+            now = time.monotonic()
+            if now - self._last_write < self.min_write_interval_s:
+                entry["captured"] = False  # rate-limited, ring has it
+            else:
+                self._last_write = now
+                try:
+                    self._write_incident(entry, spans)
+                except OSError:
+                    entry["captured"] = False  # disk trouble must not bite
+        return entry
+
+    def _write_incident(self, entry: dict, spans: list[dict]) -> None:
+        os.makedirs(self.incident_dir, exist_ok=True)
+        path = os.path.join(
+            self.incident_dir, f"inc_{entry['trace_id']:016x}.json"
+        )
+        doc = {**entry, "spans": spans}
+        if self.profile_source is not None:
+            # bounded: the heaviest stacks only — an incident file is a
+            # ring slot, not an archive
+            try:
+                doc["profile"] = self.profile_source(32)
+            except Exception:  # noqa: BLE001 — capture is best effort
+                pass
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        self._rotate()
+
+    def _rotate(self) -> None:
+        files = sorted(
+            (
+                os.path.join(self.incident_dir, n)
+                for n in os.listdir(self.incident_dir)
+                if n.startswith("inc_") and n.endswith(".json")
+            ),
+            key=os.path.getmtime,
+        )
+        for path in files[: max(len(files) - self.max_incidents, 0)]:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+
+    def slowops(self) -> list[dict]:
+        return list(self._slow)
+
+    def incident_spans(self, trace_id: int) -> list[dict] | None:
+        """Spans of a captured incident, or None — the `trace-dump`
+        fallback that lets any slowops id render after the live span
+        ring has moved on."""
+        if not self.incident_dir or not trace_id:
+            return None
+        path = os.path.join(self.incident_dir, f"inc_{trace_id:016x}.json")
+        try:
+            with open(path) as f:
+                return json.load(f).get("spans") or None
+        except (OSError, ValueError):
+            return None
+
+
+class SloEngine:
+    """Per-daemon SLO accounting wired into a ``Metrics`` registry.
+
+    ``span_source(trace_id) -> list[dict]`` supplies the spans captured
+    on breach (a daemon passes its ``trace_spans``); None disables
+    capture (objectives and burn gauges still work).
+    """
+
+    def __init__(self, metrics=None, role: str = "",
+                 objectives: dict[str, tuple[float, float]] | None = None,
+                 span_source=None, incident_dir: str | None = None):
+        self.metrics = metrics
+        self.role = role
+        self.span_source = span_source
+        self.recorder = FlightRecorder(incident_dir)
+        # optional SamplingProfiler (runtime/profiler.py): a breach
+        # arms its incident boost window so slowops captures come with
+        # stacks, and incident files embed the collapsed profile
+        self.profiler = None
+        # optional second auto-arm action (the heat loop's SLO→QoS
+        # chain): ``qos_arm(op_class, trace_id)`` is called on every
+        # breach — the master wires a rate-limited hook that arms QoS
+        # pressure on the top-offender tenant (master/server.py
+        # _slo_qos_arm). None (the default, and the LZ_HEAT-off state)
+        # keeps breach handling exactly as before.
+        self.qos_arm = None
+        # per-op-class attribution rollup: breached ops' bucketed
+        # milliseconds (tracing.attribute_timeline) accumulated across
+        # captures, so an SLO breach names WHERE the time went, not
+        # just that a threshold was crossed
+        self.attribution_ms: dict[str, dict[str, float]] = {}
+        self.objectives: dict[str, Objective] = {}
+        for op_class, (thresh_ms, target) in {
+            **DEFAULT_OBJECTIVES, **(objectives or {})
+        }.items():
+            env = os.environ.get(f"LZ_SLO_{op_class.upper()}_MS")
+            if env:
+                try:
+                    thresh_ms = float(env)
+                except ValueError:
+                    pass
+            self.objectives[op_class] = Objective(op_class, thresh_ms, target)
+        # registration honors the kill switch: a disabled engine must
+        # not export 15 dead-but-live-looking slo_* series per daemon
+        # (a runtime set_enabled(True) still works — observe() creates
+        # the series lazily, with auto help text)
+        if metrics is not None and _ENABLED:
+            for op_class, obj in self.objectives.items():
+                metrics.counter(
+                    f"slo_{op_class}_breaches",
+                    help=f"{op_class} ops that exceeded their latency "
+                         f"objective ({obj.threshold_s * 1e3:.0f} ms)",
+                )
+                metrics.gauge(
+                    f"slo_{op_class}_burn_fast",
+                    help=f"{op_class} SLO burn rate over the "
+                         f"{FAST_WINDOW_S:.0f}s window (1.0 = spending "
+                         "the error budget exactly at the sustainable "
+                         "rate)",
+                )
+                metrics.gauge(
+                    f"slo_{op_class}_burn_slow",
+                    help=f"{op_class} SLO burn rate over the "
+                         f"{SLOW_WINDOW_S:.0f}s window",
+                )
+
+    def set_threshold(self, op_class: str, threshold_ms: float) -> None:
+        obj = self.objectives.get(op_class)
+        if obj is not None:
+            obj.threshold_s = float(threshold_ms) / 1e3
+
+    def refresh_gauges(self) -> None:
+        """Recompute the burn gauges from the current windows — called
+        from the daemon's 1 Hz sampler so burn DECAYS on the metrics
+        page when traffic stops (observe() only refreshes the class it
+        just touched; without this, an idle daemon would export its
+        last, possibly alarming, burn value forever)."""
+        if not _ENABLED or self.metrics is None:
+            return
+        now = time.monotonic()
+        for op_class, obj in self.objectives.items():
+            fast, slow = obj.burn(now)
+            self.metrics.gauge(f"slo_{op_class}_burn_fast").set(fast)
+            self.metrics.gauge(f"slo_{op_class}_burn_slow").set(slow)
+
+    def observe(self, op_class: str, seconds: float,
+                trace_id: int = 0, name: str = "") -> bool:
+        """Account one finished op; returns True when it breached its
+        objective (and was flight-recorded). The LZ_SLO=0 path is this
+        first check and nothing else."""
+        if not _ENABLED:
+            return False
+        obj = self.objectives.get(op_class)
+        if obj is None:
+            return False
+        now = time.monotonic()
+        breached = obj.observe(seconds, now)
+        if self.metrics is not None:
+            fast, slow = obj.burn(now)
+            self.metrics.gauge(f"slo_{op_class}_burn_fast").set(fast)
+            self.metrics.gauge(f"slo_{op_class}_burn_slow").set(slow)
+            if breached:
+                self.metrics.counter(f"slo_{op_class}_breaches").inc()
+        if breached:
+            if self.profiler is not None:
+                # incident auto-arm: the profiler holds its boosted
+                # sample rate for the capture window so the incident's
+                # collapsed stacks have useful resolution
+                self.profiler.arm_incident()
+            if self.qos_arm is not None:
+                try:
+                    self.qos_arm(op_class, trace_id)
+                except Exception:  # noqa: BLE001 — auto-arm is best effort
+                    pass
+            spans: list[dict] = []
+            if self.span_source is not None and trace_id:
+                try:
+                    spans = self.span_source(trace_id)
+                except Exception:  # noqa: BLE001 — capture is best effort
+                    spans = []
+            entry = self.recorder.record(
+                op_class, name or op_class, seconds, trace_id, spans
+            )
+            attr = entry.get("attribution")
+            if attr:
+                roll = self.attribution_ms.setdefault(
+                    op_class,
+                    {b: 0.0 for b in tracing.ATTRIBUTION_BUCKETS},
+                )
+                for b, v in attr.get("buckets_ms", {}).items():
+                    roll[b] = roll.get(b, 0.0) + v
+        return breached
+
+    def snapshot(self) -> dict:
+        """Per-class burn/breach state for health rollups (JSON-ready)."""
+        now = time.monotonic()
+        out = {}
+        for op_class, obj in self.objectives.items():
+            fast, slow = obj.burn(now)
+            out[op_class] = {
+                "threshold_ms": round(obj.threshold_s * 1e3, 1),
+                "target": obj.target,
+                "ops": obj.ops,
+                "breaches": obj.breaches,
+                "burn_fast": round(fast, 3),
+                "burn_slow": round(slow, 3),
+                "status": obj.status(now),
+            }
+            roll = self.attribution_ms.get(op_class)
+            if roll:
+                out[op_class]["attribution_ms"] = {
+                    b: round(v, 3) for b, v in roll.items()
+                }
+                out[op_class]["attribution_dominant"] = max(
+                    roll, key=lambda b: roll[b]
+                )
+        return out
+
+    def status(self) -> str:
+        now = time.monotonic()
+        return worst_status(
+            *(obj.status(now) for obj in self.objectives.values())
+        )
+
+
+def health_from(role: str, slo: SloEngine, *,
+                loop_stalls: float = 0.0, span_ring_dropped: int = 0,
+                disk_errors: int = 0, extra: dict | None = None) -> dict:
+    """One daemon's health snapshot: SLO burn + the daemon-level
+    degradation signals. Chunkservers fold this into heartbeats; the
+    master aggregates the fleet into the `health` rollup."""
+    slo_snap = slo.snapshot() if _ENABLED else {}
+    status = slo.status() if _ENABLED else "ok"
+    if disk_errors:
+        status = worst_status(status, "degraded")
+    snap = {
+        "role": role,
+        "status": status,
+        "slo": slo_snap,
+        "breaches_total": sum(s["breaches"] for s in slo_snap.values()),
+        "slow_ops": len(slo.recorder.slowops()),
+        "loop_stalls": int(loop_stalls),
+        "span_ring_dropped": int(span_ring_dropped),
+        "disk_errors": int(disk_errors),
+    }
+    if extra:
+        snap.update(extra)
+    return snap

@@ -55,6 +55,17 @@ def test_constants_match_reference():
         assert getattr(constants, name) == getattr(ref_constants, name), name
 
 
+@pytest.mark.parametrize("name,var", [("shadow_reads_enabled", "LZ_SHADOW_READS"),
+                                      ("qos_enabled", "LZ_QOS"), ("heat_enabled", "LZ_HEAT")])
+def test_kill_switches_match_reference(monkeypatch, name, var):
+    for value in (None, "0", "off", "FALSE", "no", "1", "on", "yes"):
+        if value is None:
+            monkeypatch.delenv(var, raising=False)
+        else:
+            monkeypatch.setenv(var, value)
+        assert getattr(constants, name)() == getattr(ref_constants, name)(), (var, value)
+
+
 def test_gf_tables_match_reference():
     np.testing.assert_array_equal(gf256.GF_LOG, ref_gf256.GF_LOG)
     np.testing.assert_array_equal(gf256.GF_EXP, ref_gf256.GF_EXP)

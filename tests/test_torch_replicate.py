@@ -284,3 +284,65 @@ def test_mesh_refusal_is_a_runtime_error_of_its_own():
     assert issubclass(MeshUnavailable, RuntimeError)
     with pytest.raises(MeshUnavailable, match=">= 2 cards"):
         port_encoder.ShardedCudaChunkEncoder()
+
+
+class Counting:
+    """An encoder that counts the calls of each method it forwards."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, {}
+
+    def __getattr__(self, name):
+        fn = getattr(self.inner, name)
+
+        def counted(*args, **kwargs):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+
+        return counted
+
+
+@pytest.mark.parametrize("case", ["ec(4,2)-data", "xor3-parity"])
+def test_plan_then_write_is_rebuild_part(tmp_path, case):
+    """The server's two steps around its network read give the same plan
+    and the same file as ``rebuild_part``. (The std copy's plan is one
+    read; ``tests/test_torch_chunkserver.py`` holds the server's split
+    to the reference for it.)"""
+    st, lost, failing, scores = CASES[case]
+    chunk = data_generator.generate(12, CHUNK_LEN)
+    parts = {0: chunk} if st.is_standard else striping.split_chunk(chunk, st, CpuChunkEncoder())
+    part_id = geometry.ChunkPartType(st, lost).id
+    stores, sources = _write_parts(port_store, tmp_path / "src", st, parts,
+                                   None if st.is_standard else lost)
+    encoder = CudaChunkEncoder(device="cpu")
+    whole = port_store.ChunkStore(str(tmp_path / "whole"))
+    split = port_store.ChunkStore(str(tmp_path / "split"))
+    plan = replicate.rebuild_part(whole, CHUNK_ID, VERSION, part_id, sources,
+                                  StoreExecutor(stores, failing), encoder, scores=scores)
+    plan2, locations, nblocks = replicate.plan_rebuild(part_id, sources, encoder, scores)
+    assert _ops(plan2) == _ops(plan)
+    assert locations == replicate.source_locations(geometry.ChunkPartType.from_id(part_id),
+                                                   sources)
+    assert nblocks == geometry.number_of_blocks_in_part(geometry.ChunkPartType(st, lost))
+    data = StoreExecutor(stores, failing)(plan2, CHUNK_ID, VERSION, locations)
+    replicate.write_rebuilt(split, CHUNK_ID, VERSION, part_id, data, nblocks, encoder)
+    a, b = whole.get(CHUNK_ID, part_id), split.get(CHUNK_ID, part_id)
+    assert open(a.path, "rb").read() == open(b.path, "rb").read()
+
+
+def test_checksum_runs_on_the_encoder_given_to_write_rebuilt(tmp_path):
+    """Recovery runs on the plan's encoder, the checksum on the one
+    ``write_rebuilt`` is given, as the server splits them."""
+    st, lost = geometry.ec_type(4, 2), 1
+    parts = striping.split_chunk(data_generator.generate(13, CHUNK_LEN), st, CpuChunkEncoder())
+    part_id = geometry.ChunkPartType(st, lost).id
+    stores, sources = _write_parts(port_store, tmp_path / "src", st, parts, lost)
+    recovery = Counting(CudaChunkEncoder(device="cpu"))
+    configured = Counting(CudaChunkEncoder(device="cpu"))
+    plan, locations, nblocks = replicate.plan_rebuild(part_id, sources, recovery)
+    data = StoreExecutor(stores)(plan, CHUNK_ID, VERSION, locations)
+    target = port_store.ChunkStore(str(tmp_path / "target"))
+    replicate.write_rebuilt(target, CHUNK_ID, VERSION, part_id, data, nblocks, configured)
+    assert recovery.calls == {"recover": 1}
+    assert configured.calls == {"checksum": 1}
+    assert target.test_part(target.get(CHUNK_ID, part_id))
