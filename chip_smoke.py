@@ -59,13 +59,33 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    the wire write, the whole read, the degraded read and
    ``_cmd_replicate`` with its split (``plan_rebuild``, ``execute_plan``
    and its ``recover``, ``write_rebuilt`` and its ``checksum``);
-8. times each kernel and its plain version with CUDA events, the CRC
+8. runs a whole cluster as a user does, at the shipped goal: one port
+   ``MasterServer`` (``SHIPPED_GOALS``), thirteen port ``ChunkServer``s
+   on the card's encoder and one port ``Client`` on ``get_encoder(None)``
+   (``cuda`` on one card), in this process on localhost ports; a file of
+   two 64 MiB chunks, 1 MiB and 4242 bytes written through the master's
+   grants (three times, the first counted), read back whole (three
+   times), read degraded (three times) with a holder of a data part of
+   chunk 0 stopped and the master's rebuilds held back, then the
+   master's health loop rebuilding every lost part; chunk 0's rebuilt
+   part against the numpy golden bytes and CRCs, and the file read
+   once more. The counters are set to 0 before the write, the read, the
+   degraded read and the rebuild and read after each (``encode`` at
+   least once a chunk in the write and once in the degraded read and
+   the rebuild, ``block_crcs`` at least once in the rebuild). It prints
+   a ``cluster_ec8_4`` line: host-clock medians of the write (and MiB/s,
+   and the client's write phases), the read and the degraded read; the
+   time the master took to see the server go and to heal, with the
+   rebuilds' split summed over them; the kernels' and the copies' device
+   time (``torch.profiler``) in one more write and in the heal, as a
+   share of each; and two ``profile`` lines of the sampler;
+9. times each kernel and its plain version with CUDA events, the CRC
    wrappers on rows off a 16-byte boundary, the encoder's write and
    one-part rebuild end to end (numpy in and out) at ec(8,4), and the
    ec(32,8) wide-stripe encode and rebuild on the mesh beside one card's
    encoder, and prints one JSON line per kernel and per path, the card,
    and a ``{"kernels": [...]}`` line;
-9. ends with ``{"ok": true, "device": {...}}``.
+10. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero.
 """
@@ -112,6 +132,8 @@ SHIPPED_GOALS = "10 fast : $ec(8,4)"  # README.md's goals.cfg line
 SHORT_CHUNK = CHUNK - 3 * BS - 1000  # trailing parts short: zero-padded on read
 LOST = 3  # the part the rebuild phase loses
 RMW_BLOCKS = (5, 37)  # first block and block count of the degraded read
+CLUSTER_BYTES = 2 * CHUNK + 2**20 + 4242  # the cluster phase's file: two chunks and a tail
+CLUSTER_REPS = 3  # timed writes and reads of the cluster phase
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
     "block_crcs": "lizardfs_tpu/ops/pallas_ec.py:166",
@@ -391,6 +413,9 @@ def main() -> int:
 
     # -- phase 5b: the chunkserver on the wire -----------------------------
     wire_path(get_encoder("cuda"), card)
+
+    # -- phase 5c: a whole cluster: master, chunkservers, client ----------
+    cluster_path(card)
 
     # -- phase 6: timing -------------------------------------------------
     def window_ms(fn, iters):
@@ -1197,6 +1222,268 @@ async def _wire_path(configured, card: str) -> None:
                       "encoder": configured.name, "replicator": recovery.name, "card": card}))
     for step, split in profiles.items():
         print(json.dumps({"profile": f"wire_{step}", **split}))
+
+
+def kernel_device_ms(prof) -> dict:
+    """Device time a ``torch.profiler`` run recorded, in ms: the port's
+    kernels (``..._kernel``, in its anonymous namespace), the copies
+    between host and card, and each event's own time by name."""
+    out = {"kernels_ms": 0.0, "copies_ms": 0.0, "by_name": {}}
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if not ms:
+            continue
+        kernel = re.search(r"\b(\w+_kernel)\b", e.key)
+        name = kernel.group(1) if kernel else e.key[:40]
+        out["by_name"][name] = out["by_name"].get(name, 0.0) + ms
+        if kernel:
+            out["kernels_ms"] += ms
+        elif e.key.startswith("Memcpy"):
+            out["copies_ms"] += ms
+    return out
+
+
+def cluster_path(card: str) -> None:
+    """The port as a user runs it, at the shipped ec(8,4) goal: one
+    ``MasterServer`` (goal ``SHIPPED_GOALS``), thirteen ``ChunkServer``s
+    on the card's encoder and one ``Client`` on ``get_encoder(None)``, in
+    this process on localhost ports; a file of ``CLUSTER_BYTES`` written
+    through the master's grants, read whole, read degraded with a holder
+    of a data part of chunk 0 stopped, and its lost parts rebuilt by the
+    master's health loop. Every server is stopped and the connection pool
+    closed on the way out."""
+    import asyncio
+
+    asyncio.run(_cluster_path(card))
+
+
+async def _cluster_path(card: str) -> None:
+    import asyncio
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lizardfs_tpu_torch.chunkserver import replicate
+    from lizardfs_tpu_torch.chunkserver.server import ChunkServer
+    from lizardfs_tpu_torch.client.client import Client
+    from lizardfs_tpu_torch.core import conn_pool, geometry, read_executor
+    from lizardfs_tpu_torch.core.encoder import CpuChunkEncoder, get_encoder
+    from lizardfs_tpu_torch.master.server import MasterServer
+    from lizardfs_tpu_torch.ops import crc32, cuda_ec
+    from lizardfs_tpu_torch.runtime import profiler
+    from lizardfs_tpu_torch.utils import striping
+
+    size, reps = CLUSTER_BYTES, CLUSTER_REPS
+    goals = geometry.load_goal_config(SHIPPED_GOALS)
+    st = goals[10].disk_slice().type
+    rng = np.random.default_rng(SEED + 3)
+    data = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+    times = collections.defaultdict(list)
+    launches = {}
+    servers, stopped, clients = [], set(), []
+    master = None
+    prof = profiler.SamplingProfiler(role="chip_smoke", interval_s=0.005, overhead_budget=0.25)
+    # the rebuilds and degraded reads recover on the event loop, as the
+    # JAX package's do: the daemons' stall warnings are counted, not printed
+    loggers = [logging.getLogger(name) for name in (ChunkServer.name, MasterServer.name, "client")]
+    levels = [lg.level for lg in loggers]
+    for lg in loggers:
+        lg.setLevel(logging.ERROR)
+
+    def count(step):
+        sync_all()
+        launches[step] = dict(cuda_ec.LAUNCHES)
+        cuda_ec.reset_launches()
+
+    async def heal_wait(chunks, what, timeout=120.0):
+        t = time.perf_counter()
+        while any(master.meta.registry.evaluate(c).missing_parts for c in chunks):
+            require(time.perf_counter() - t < timeout, what)
+            await asyncio.sleep(0.01)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as root:
+        try:
+            master = MasterServer(f"{root}/master", goals=goals, health_interval=0.2)
+            await master.start()
+            for i in range(K + M + 1):
+                cs = ChunkServer(f"{root}/cs{i}", master_addr=("127.0.0.1", master.port),
+                                 encoder=get_encoder("cuda"))
+                await cs.start()
+                servers.append(cs)
+            client = Client("127.0.0.1", master.port)
+            clients.append(client)
+            want = "cuda" if torch.cuda.device_count() == 1 else "sharded"
+            require(client.encoder.name == want, f"the client's encoder is {want!r}")
+            await client.connect()
+            f = await client.create(1, "cluster.bin")
+            await client.setgoal(f.inode, 10)
+
+            # 1. write: the first of the timed writes is counted and
+            # checked; each rewrites the whole file
+            cuda_ec.reset_launches()
+            prof.start()
+            for rep in range(reps):
+                t = time.perf_counter()
+                await client.write_file(f.inode, data)
+                sync_all()
+                times["write_ms"].append(time.perf_counter() - t)
+                if rep == 0:
+                    count("write")
+                    phases = {k: v for k, v in client.write_phases.snapshot().items()
+                              if k != "reps"}
+            profiles = {"write": sampled(prof)}
+            node = master.meta.fs.nodes[f.inode]
+            nchunks = -(-size // CHUNK)
+            require(node.length == size and len(node.chunks) == nchunks,
+                    f"the master holds a file of {size} bytes in {nchunks} chunks")
+            chunks = [master.meta.registry.chunks[c] for c in node.chunks]
+            require(all(len(c.parts) == K + M for c in chunks), "every chunk has its twelve parts")
+            # one more write under torch.profiler: the kernels' and the
+            # copies' device time beside the write's host time
+            with profile(activities=[ProfilerActivity.CUDA]) as tp:
+                t = time.perf_counter()
+                await client.write_file(f.inode, data)
+                sync_all()
+                profiled_write_s = time.perf_counter() - t
+            write_device = kernel_device_ms(tp)
+            cuda_ec.reset_launches()
+
+            # 2. the whole file read back, byte for byte
+            for _ in range(reps):
+                t = time.perf_counter()
+                back = await client.read_file(f.inode)
+                times["read_ms"].append(time.perf_counter() - t)
+                require(back == data, "the whole file read back")
+            count("read")
+
+            # 3. a holder of a data part of chunk 0 stops; the master's
+            # rebuilds are held back (its per-chunk retry backoff) until
+            # the degraded reads are done
+            for c in chunks:
+                master._repl_fail_until[c.chunk_id] = time.monotonic() + 3600.0
+            victim_id = next(cs for cs, p in sorted(chunks[0].parts) if p < K)
+            victim_port = master.meta.registry.servers[victim_id].port
+            victim = next(i for i, cs in enumerate(servers) if cs.port == victim_port)
+            lost = {c.chunk_id: p for c in chunks for cs, p in c.parts if cs == victim_id}
+            t_kill = time.perf_counter()
+            await servers[victim].stop()
+            stopped.add(victim)
+            while master.meta.registry.servers[victim_id].connected:
+                require(time.perf_counter() - t_kill < 30.0, "the master sees the server go")
+                await asyncio.sleep(0.005)
+            detect_s = time.perf_counter() - t_kill
+            cuda_ec.reset_launches()
+            for _ in range(reps):
+                client.cache.invalidate(f.inode)
+                t = time.perf_counter()
+                back = await client.read_file(f.inode)
+                sync_all()
+                times["degraded_read_ms"].append(time.perf_counter() - t)
+                require(back == data, "the degraded read")
+            count("degraded_read")
+
+            # 4. the master's health loop rebuilds the lost parts onto
+            # servers that lacked them (chunk 0's spare is the thirteenth)
+            split = collections.defaultdict(float)
+            plan_rebuild, execute_plan = replicate.plan_rebuild, read_executor.execute_plan
+            write_rebuilt = replicate.write_rebuilt
+
+            def timed(name, fn):
+                def run(*args, **kwargs):
+                    t = time.perf_counter()
+                    out = fn(*args, **kwargs)
+                    sync_all()
+                    split[name] += time.perf_counter() - t
+                    return out
+                return run
+
+            async def timed_execute(*args, **kwargs):
+                t = time.perf_counter()
+                out = await execute_plan(*args, **kwargs)
+                sync_all()
+                split["execute_plan"] += time.perf_counter() - t
+                return out
+
+            live = [cs for i, cs in enumerate(servers) if i not in stopped]
+            encoders = [(cs._replicator_encoder(), cs.encoder) for cs in live]
+            replicate.plan_rebuild = timed("plan_rebuild", plan_rebuild)
+            replicate.write_rebuilt = timed("write_rebuilt", write_rebuilt)
+            read_executor.execute_plan = timed_execute
+            for cs, (recovery, configured) in zip(live, encoders):
+                cs._recovery_encoder = Timed(recovery, "recover")
+                cs.encoder = Timed(configured, "checksum")
+            prof.reset()
+            try:
+                with profile(activities=[ProfilerActivity.CUDA]) as tp:
+                    t_heal = time.perf_counter()
+                    master._repl_fail_until.clear()
+                    await heal_wait(chunks, "the health loop rebuilds every lost part")
+                    sync_all()
+                    heal_s = time.perf_counter() - t_heal
+            finally:
+                replicate.plan_rebuild, replicate.write_rebuilt = plan_rebuild, write_rebuilt
+                read_executor.execute_plan = execute_plan
+                for cs, (recovery, configured) in zip(live, encoders):
+                    split["recover"] += cs._recovery_encoder.seconds["recover"]
+                    split["checksum"] += cs.encoder.seconds["checksum"]
+                    cs._recovery_encoder, cs.encoder = recovery, configured
+            count("rebuild")
+            profiles["rebuild"] = sampled(prof)
+            heal_device = kernel_device_ms(tp)
+            rebuilt = sum(cs.metrics.counter("replications").total for cs in live)
+            require(rebuilt >= len(lost), f"{len(lost)} lost parts rebuilt")
+
+            # 5. the rebuilt part of chunk 0 against the numpy golden
+            # path: its bytes (a data part: the chunk's own stripes) and
+            # its block CRCs
+            golden = striping.split_chunk(np.frombuffer(data[:CHUNK], np.uint8), st,
+                                          CpuChunkEncoder())
+            part0 = lost[chunks[0].chunk_id]
+            part_id = geometry.ChunkPartType(st, part0).id
+            holder = next(cs for cs in live if cs.store.get(chunks[0].chunk_id, part_id))
+            check_rebuilt(holder.store, chunks[0].chunk_id, part_id, golden[part0],
+                          crc32.block_crcs_golden(golden[part0].reshape(-1, BS)))
+            client.cache.invalidate(f.inode)
+            require(await client.read_file(f.inode) == data, "the file read after the rebuild")
+            stalls = sum(cs.metrics.counter("loop_stalls").total for cs in servers)
+        finally:
+            for c in clients:
+                await c.close()
+            for i, cs in enumerate(servers):
+                if i not in stopped:
+                    await cs.stop()
+            if master is not None:
+                await master.stop()
+            conn_pool.GLOBAL_POOL.close_all()
+            prof.stop()
+            for lg, level in zip(loggers, levels):
+                lg.setLevel(level)
+
+    for step, floor in (("write", nchunks), ("degraded_read", 1), ("rebuild", 1)):
+        require(launches[step]["encode"] >= floor,
+                f"encode launched {floor}+ times in the cluster's {step}")
+    require(launches["rebuild"]["block_crcs"] >= 1, "block_crcs launched in the cluster's rebuild")
+    write_ms = median_ms(times["write_ms"])
+    print(f"cluster phase: encoder {want}, launches {json.dumps(launches)}, "
+          f"lost parts {sorted(lost.values())} of {len(lost)} chunks")
+    print(json.dumps({
+        "path": "cluster_ec8_4", "reps": reps, "file_bytes": size, "chunks": nchunks,
+        **{k: median_ms(v) for k, v in times.items()},
+        "write_ms_each": [t * 1e3 for t in times["write_ms"]],
+        "write_MiB_s": size / 2**20 / (write_ms / 1e3),
+        "write_phases_ms": phases,
+        "detect_ms": detect_s * 1e3, "heal_ms": heal_s * 1e3,
+        "kill_to_healed_ms": (detect_s + heal_s) * 1e3,
+        "rebuilt_parts": len(lost), "replicate_split_ms": {k: v * 1e3 for k, v in split.items()},
+        "profiled_write_ms": profiled_write_s * 1e3, "write_device": write_device,
+        "write_kernel_share": write_device["kernels_ms"] / (profiled_write_s * 1e3),
+        "heal_device": heal_device,
+        "heal_kernel_share": heal_device["kernels_ms"] / (heal_s * 1e3),
+        "launches": launches, "loop_stall_warnings": stalls,
+        "encoder": want, "card": card,
+    }))
+    for step, split in profiles.items():
+        print(json.dumps({"profile": f"cluster_{step}", **split}))
 
 
 if __name__ == "__main__":

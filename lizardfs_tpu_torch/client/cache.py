@@ -1,0 +1,161 @@
+"""Client-side read cache + readahead adviser.
+
+Analog of the reference's per-inode read machinery (reference:
+src/mount/readdata_cache.h block-aligned ReadCache,
+src/mount/readahead_adviser.h window sizing): a block-granular LRU
+shared across inodes with byte budget, and a per-inode sequentiality
+detector that grows the readahead window on streaming reads and resets
+it on seeks.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+from lizardfs_tpu_torch.constants import MFSBLOCKSIZE
+
+
+class BlockCache:
+    """LRU of 64 KiB chunk blocks keyed (inode, chunk_index, block).
+
+    Coherence is three-layered (reference: src/mount/readdata_cache.h
+    timeout expiry; src/master/matoclserv.cc data-cache invalidation;
+    src/mount/chunk_locator.h version revalidation):
+
+    - the master pushes ``MatoclCacheInvalidate`` when ANOTHER session
+      mutates the file -> ``invalidate()``;
+    - every locate returns (chunk_id, version); ``note_version()`` drops
+      blocks cached under a different identity, so even a missed push is
+      caught at the next locate;
+    - entries expire after ``max_age`` seconds as the last-resort bound
+      (e.g. this client's master connection dropped mid-push).
+    """
+
+    def __init__(self, max_bytes: int = 64 * 2**20, max_age: float = 3.0):
+        import time
+
+        self.max_bytes = max_bytes
+        self.max_age = max_age
+        self._now = time.monotonic
+        self._used = 0
+        # (inode, ci, block) -> (data, fill-ts, version-tag)
+        self._entries: OrderedDict[
+            tuple[int, int, int], tuple[bytes, float, object]
+        ] = OrderedDict()
+        # (inode, ci) -> resident blocks, so note_version/invalidate
+        # touch only their own chunk instead of scanning every entry
+        self._chunk_blocks: dict[tuple[int, int], set[int]] = {}
+        # (inode, ci) -> last version tag seen by a locate; LRU-bounded
+        # (evicting a note only costs a skipped cache fill — see put())
+        self._versions: OrderedDict[tuple[int, int], object] = OrderedDict()
+        self.max_version_notes = 8192
+        self.hits = 0
+        self.misses = 0
+        self._invalidate_listeners: list = []
+
+    def add_invalidate_listener(self, fn) -> None:
+        """``fn(inode)`` runs on every explicit invalidation (master
+        push, local write, truncate): layers stacked above the client —
+        e.g. the NFS gateway's readahead buffers — stay coherent
+        without their own push plumbing."""
+        self._invalidate_listeners.append(fn)
+
+    def _remove(self, key: tuple[int, int, int]) -> None:
+        data, _, _ = self._entries.pop(key)
+        self._used -= len(data)
+        blocks = self._chunk_blocks.get(key[:2])
+        if blocks is not None:
+            blocks.discard(key[2])
+            if not blocks:
+                del self._chunk_blocks[key[:2]]
+
+    def get(self, inode: int, ci: int, block: int) -> bytes | None:
+        key = (inode, ci, block)
+        entry = self._entries.get(key)
+        if entry is None:
+            self.misses += 1
+            return None
+        data, ts, _version = entry
+        if self._now() - ts > self.max_age:
+            self._remove(key)
+            self.misses += 1
+            return None
+        self._entries.move_to_end(key)
+        self.hits += 1
+        return data
+
+    def put(
+        self, inode: int, ci: int, block: int, data: bytes,
+        version: object = None,
+    ) -> None:
+        # refuse to cache under a version the locate layer no longer
+        # vouches for: an invalidation (or a newer locate) that landed
+        # while this read was in flight cleared/changed the note, and
+        # re-inserting would resurrect exactly the stale bytes the
+        # invalidation removed
+        if version is not None and self._versions.get((inode, ci)) != version:
+            return
+        key = (inode, ci, block)
+        if key in self._entries:
+            self._remove(key)
+        self._entries[key] = (data, self._now(), version)
+        self._used += len(data)
+        self._chunk_blocks.setdefault((inode, ci), set()).add(block)
+        while self._used > self.max_bytes and self._entries:
+            self._remove(next(iter(self._entries)))
+
+    def note_version(self, inode: int, ci: int, version: object) -> None:
+        """Record the chunk identity a locate just returned; drop any
+        blocks cached under a different one (stale by definition)."""
+        key = (inode, ci)
+        if self._versions.get(key) == version:
+            self._versions.move_to_end(key)
+            return
+        self._versions[key] = version
+        self._versions.move_to_end(key)
+        while len(self._versions) > self.max_version_notes:
+            self._versions.popitem(last=False)
+        for b in list(self._chunk_blocks.get(key, ())):
+            if self._entries[(inode, ci, b)][2] != version:
+                self._remove((inode, ci, b))
+
+    def invalidate(self, inode: int, ci: int | None = None) -> None:
+        """Drop an inode's blocks (optionally just one chunk's)."""
+        chunks = (
+            [(inode, ci)] if ci is not None
+            else [k for k in self._chunk_blocks if k[0] == inode]
+        )
+        for ck in chunks:
+            for b in list(self._chunk_blocks.get(ck, ())):
+                self._remove((ck[0], ck[1], b))
+            self._versions.pop(ck, None)
+        if ci is None:
+            for vk in [k for k in self._versions if k[0] == inode]:
+                del self._versions[vk]
+        for fn in self._invalidate_listeners:
+            fn(inode)
+
+
+class ReadaheadAdviser:
+    """Grows a readahead window while access stays sequential."""
+
+    def __init__(
+        self,
+        min_window: int = 0,
+        max_window: int = 16 * MFSBLOCKSIZE,
+    ):
+        self.min_window = min_window
+        self.max_window = max_window
+        self._expected_next = -1
+        self._window = min_window
+
+    def advise(self, offset: int, size: int) -> int:
+        """Returns extra bytes to read past the request."""
+        if offset == self._expected_next:
+            self._window = min(
+                max(self._window * 2, 2 * MFSBLOCKSIZE), self.max_window
+            )
+        else:
+            self._window = self.min_window
+        self._expected_next = offset + size
+        return self._window

@@ -20,6 +20,9 @@ MFSCHUNKSIZE = MFSBLOCKSIZE * MFSBLOCKSINCHUNK
 # the chunk store's layout (chunkserver/chunk_store.py).
 MFSHDRSIZE = 4 * 1024 + 1024
 
+# Maximum file size = chunk size * 2^31 (MFSCommunication.h:84).
+MAX_FILE_SIZE = MFSCHUNKSIZE * (1 << 31)
+
 # CRC32 polynomial (reflected), identical to zlib's crc32
 # (MFSCommunication.h:81).
 CRC_POLY = 0xEDB88320
@@ -73,3 +76,39 @@ def heat_enabled() -> bool:
     """LZ_HEAT (default on): the chunkserver folds per-chunk heat into
     its heartbeats; off sends an empty fold."""
     return env_flag("LZ_HEAT")
+
+
+def ha_enabled() -> bool:
+    """LZ_HA (default on): quorum election among masters and automatic
+    fenced promotion. The port's master runs no election yet (its entry
+    point refuses an HA configuration); the master reads the switch for
+    the epoch fields of its links, which stay 0 without an election."""
+    return env_flag("LZ_HA")
+
+
+def s3_lifecycle_enabled() -> bool:
+    """LZ_S3_LIFECYCLE (default on): the master's lifecycle tiering
+    scanner demotes cold objects of directories that carry rules."""
+    return env_flag("LZ_S3_LIFECYCLE")
+
+
+# Per-inode extra-attribute flags (reference: MFSCommunication.h EATTR_*
+# subset): NOOWNER makes every uid act as the owner for permission
+# checks; NOCACHE forbids client-side caching of the inode's blocks;
+# NOENTRYCACHE forbids caching its lookup/attr entries; LIFECYCLE marks a
+# directory that carries S3 lifecycle rules (S3_LIFECYCLE_XATTR).
+EATTR_NOOWNER = 0x01
+EATTR_NOCACHE = 0x02
+EATTR_NOENTRYCACHE = 0x04
+EATTR_LIFECYCLE = 0x08
+
+EATTR_NAMES = {
+    "noowner": EATTR_NOOWNER,
+    "nocache": EATTR_NOCACHE,
+    "noentrycache": EATTR_NOENTRYCACHE,
+    "lifecycle": EATTR_LIFECYCLE,
+}
+
+# Directory xattr holding the lifecycle rule parameters as JSON
+# ({"demote_after_s": seconds}).
+S3_LIFECYCLE_XATTR = "lizardfs.s3.lifecycle"

@@ -19,6 +19,7 @@ Parts are equal-length 1-D uint8 numpy arrays; part indices are global:
 from __future__ import annotations
 
 import abc
+import threading
 
 import numpy as np
 import torch
@@ -127,6 +128,11 @@ class CudaChunkEncoder(ChunkEncoder):
     go to the card through pinned host buffers and results come back the
     same way. ``device`` defaults to ``cuda:0``; ``device="cpu"`` runs
     every method through the kernels' plain PyTorch versions (tests).
+
+    One encoder serves concurrent threads (the client encodes each chunk
+    of a write in ``asyncio.to_thread``): the matrix cache is guarded by
+    a lock, and each call stages, launches and fetches on its thread's
+    current stream, whose copies back to the host wait for the kernel.
     """
 
     name = "cuda"
@@ -138,6 +144,7 @@ class CudaChunkEncoder(ChunkEncoder):
         # kernels' table cache is kept per matrix tensor, so a matrix
         # uploaded once is read back once
         self._matrices: dict[tuple, torch.Tensor] = {}
+        self._matrices_lock = threading.Lock()
 
     def _stage(self, rows) -> torch.Tensor:
         """Equal-length 1-D byte arrays -> one (len(rows), N) uint8 tensor
@@ -164,11 +171,12 @@ class CudaChunkEncoder(ChunkEncoder):
     def _matrix(self, bigm: np.ndarray) -> torch.Tensor:
         bigm = np.ascontiguousarray(bigm)
         key = (bigm.shape, bigm.tobytes())
-        t = self._matrices.get(key)
-        if t is None:
-            if len(self._matrices) >= _MATRIX_CACHE:
-                self._matrices.pop(next(iter(self._matrices)))
-            t = self._matrices[key] = torch.from_numpy(bigm).to(self.device)
+        with self._matrices_lock:
+            t = self._matrices.get(key)
+            if t is None:
+                if len(self._matrices) >= _MATRIX_CACHE:
+                    self._matrices.pop(next(iter(self._matrices)))
+                t = self._matrices[key] = torch.from_numpy(bigm).to(self.device)
         return t
 
     def _encode(self, k, m, data_parts) -> torch.Tensor:

@@ -1,0 +1,704 @@
+"""Chunk registry + chunkserver database + health engine.
+
+The analog of the reference's chunk metadata engine (reference:
+src/master/chunks.{h,cc}): per-chunk version and slice type, live part
+locations (volatile — rebuilt from chunkserver registrations, never
+persisted), redundancy evaluation (ChunkCopiesCalculator analog,
+src/common/chunk_copies_calculator.h:41-95), an **endangered-first
+priority queue** (chunks.cc:256-259), and the periodic health walk that
+issues replicate/delete commands (chunks.cc:1807-2200).
+
+Server selection is label-aware weighted-by-free-space choice
+(get_servers_for_new_chunk.h:68-100 analog).
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from dataclasses import dataclass, field
+
+from lizardfs_tpu_torch.core import geometry
+from lizardfs_tpu_torch.proto import status as st
+
+
+@dataclass
+class ChunkServerInfo:
+    cs_id: int
+    host: str
+    port: int
+    label: str
+    total_space: int = 0
+    used_space: int = 0
+    connected: bool = True
+    data_port: int = 0  # native data-plane port (0 = use control port)
+    # True while the entry is fed by a PASSIVE mirror link (shadow
+    # side): locations are servable but no command link exists — admin
+    # tooling must not mistake a mirror-fed shadow for the active
+    mirror: bool = False
+
+    @property
+    def addr(self) -> tuple[str, int]:
+        return (self.host, self.port)
+
+    @property
+    def data_addr_port(self) -> int:
+        """Port clients should use for data-plane ops."""
+        return self.data_port or self.port
+
+    @property
+    def free_space(self) -> int:
+        return max(self.total_space - self.used_space, 0)
+
+
+@dataclass
+class ChunkInfo:
+    chunk_id: int
+    version: int
+    slice_type: int  # geometry slice type id
+    copies: int = 1  # wanted copies per part (std goals: N-copy replication)
+    goal_id: int = 0  # goal that created this chunk (label-aware repair)
+    refcount: int = 1  # files referencing this chunk (snapshots share; COW
+    #                    on write — chunk_goal_counters analog)
+    # temporary heat-driven goal boost: extra wanted copies on top of
+    # ``copies`` while the chunk is hot (master/heat.py adaptive
+    # replication). Applied/cleared ONLY through the goal_boost /
+    # goal_demote changelog ops so shadows and the image agree.
+    boost: int = 0
+    locked_until: float = 0.0
+    # live locations: (cs_id, slice part index) set; volatile
+    parts: set[tuple[int, int]] = field(default_factory=set)
+
+    def parts_by_index(self) -> dict[int, list[int]]:
+        out: dict[int, list[int]] = {}
+        for cs_id, part in self.parts:
+            out.setdefault(part, []).append(cs_id)
+        return out
+
+
+class RedundancyState:
+    """ChunkCopiesCalculator verdict for one chunk."""
+
+    def __init__(self, missing: list[int], redundant: list[tuple[int, int]],
+                 safe: bool, readable: bool,
+                 crowded: list[tuple[int, int]] | None = None,
+                 boost_only: bool = False):
+        self.missing_parts = missing  # slice part indices with no copy
+        self.redundant = redundant  # (cs_id, part) copies beyond 1
+        self.is_safe = safe  # can lose any single server w/o data loss
+        self.is_readable = readable
+        # (cs_id, part) pairs doubled up on a server that already holds
+        # another part of this chunk — emergency placement that should
+        # migrate off once a distinct server is available
+        self.crowded = crowded or []
+        # True when every missing copy is owed only to a heat-driven
+        # goal boost (base goal satisfied): replication work, yes, but
+        # never "endangered" on health surfaces or in priority queues
+        self.boost_only = boost_only
+
+    @property
+    def is_endangered(self) -> bool:
+        return self.is_readable and not self.is_safe
+
+    @property
+    def needs_work(self) -> bool:
+        return bool(self.missing_parts or self.redundant)
+
+
+class ChunkRegistry:
+    def __init__(self):
+        self.chunks: dict[int, ChunkInfo] = {}
+        self.servers: dict[int, ChunkServerInfo] = {}
+        # (host, port) -> ChunkServerInfo: registration at 10k-server
+        # scale must not scan the whole server table per register (a
+        # storm of N registrations was O(N^2); test_scalability pins
+        # the bound). Maintained by register_server only — servers are
+        # never removed, only marked disconnected.
+        self._server_by_addr: dict[tuple[str, int], ChunkServerInfo] = {}
+        self.next_chunk_id = 1
+        self.next_cs_id = 1
+        # endangered queue served before routine work (chunks.cc:2562):
+        # FIFO + membership set, O(1) push/pop — NOT a scan cursor; the
+        # routine walk below keeps its own cursor
+        from collections import deque
+
+        self.endangered: deque[int] = deque()
+        self._endangered_set: set[int] = set()
+        # stale-version parts kept as repair material: when a
+        # chunkserver registers parts at the wrong version for a chunk
+        # that is currently UNREADABLE, deleting them would destroy the
+        # only bytes `filerepair` can version-fix from (the reference
+        # keeps "wrong version" copies for repair too).
+        # chunk_id -> {(cs_id, wire part_id): version}; volatile.
+        self.stale_versions: dict[int, dict[tuple[int, int], int]] = {}
+        # per-server part index: cs_id -> {(chunk_id, part): ChunkInfo}
+        # — the reference keeps per-server chunk lists (matocsserv.cc
+        # server entries) so a disconnect touches only that server's
+        # parts, never the whole table. Values hold the chunk object so
+        # the disconnect walk skips a dict lookup per part (6x cheaper
+        # at 50k parts). Maintained by every parts mutation.
+        self._server_parts: dict[int, dict[tuple[int, int], ChunkInfo]] = {}
+        # persistent background-scan cursor (chunks.cc:1807-1830
+        # ChunkWorker coroutine analog): the id list snapshots once per
+        # full cycle instead of being rebuilt every tick
+        self._scan_ids: list[int] = []
+        self._scan_idx = 0
+        # chunk-danger aggregates maintained BY the routine walk: each
+        # full cursor cycle counts endangered/lost as a side effect of
+        # the evaluations it already performs, and publishes the totals
+        # at wrap — health/stats probes read the published aggregate
+        # instead of walking the whole table (the O(all-chunks) sweeps
+        # at server.py cluster_health/chunks-health were the master's
+        # biggest per-probe stall at 1M chunks).
+        # (endangered, lost, chunks_at_publish); scanned_monotonic
+        # counts total evaluations so tests can assert progress.
+        self.danger_counts: tuple[int, int, int] = (0, 0, 0)
+        self._cycle_endangered = 0
+        self._cycle_lost = 0
+        self.danger_scanned_total = 0
+        # bootstrap cursor: bounds time-to-first-publish after a
+        # (re)start (see danger_bootstrap)
+        self._boot_ids: list[int] = []
+        self._boot_idx = 0
+        self._boot_endangered = 0
+        self._boot_lost = 0
+        self._rebalance_ids: list[int] = []
+        # chunks released from metadata whose on-disk parts still need
+        # deleting on chunkservers (drained by the master's health tick;
+        # bounded so an idle shadow doesn't grow it forever)
+        self.pending_deletes: list[ChunkInfo] = []
+        self._rebalance_cursor = 0
+        self._rng = random.Random(0xEC)
+        # chunks currently carrying a heat-driven goal boost (mirrors
+        # ChunkInfo.boost > 0; maintained by set_boost so the heat tick
+        # never scans the whole table to find its own boosts)
+        self.boosted: set[int] = set()
+        # observatory-driven placement (master/heat.py): cs_id -> load
+        # score in [0, 1+] (heartbeat health + DRR queue depth + heat
+        # share, maintained by the master's heat tick). Empty — the
+        # LZ_HEAT-off state — means pure free-space weighting, the
+        # pre-heat behavior, byte for byte.
+        self.server_load: dict[int, float] = {}
+
+    # --- chunkserver db -------------------------------------------------------
+
+    def register_server(
+        self, host: str, port: int, label: str, total: int, used: int,
+        data_port: int = 0,
+    ) -> ChunkServerInfo:
+        # reconnection of the same host:port replaces the old entry —
+        # O(1) via the addr index (a 10k-server registration storm was
+        # O(N^2) when this scanned the table)
+        srv = self._server_by_addr.get((host, port))
+        if srv is not None:
+            srv.connected = True
+            srv.label = label
+            srv.total_space = total
+            srv.used_space = used
+            srv.data_port = data_port
+            return srv
+        cs = ChunkServerInfo(
+            self.next_cs_id, host, port, label, total, used,
+            data_port=data_port,
+        )
+        self.next_cs_id += 1
+        self.servers[cs.cs_id] = cs
+        self._server_by_addr[(host, port)] = cs
+        return cs
+
+    def server_disconnected(self, cs_id: int) -> list[int]:
+        """Mark server down, drop its parts; returns affected chunk ids
+        (chunks.h:80 chunk_server_disconnected analog).
+
+        O(parts on that server) via the per-server index — a bounce on
+        a 10M-chunk master must not walk the whole table under the
+        event loop (test_scalability.py pins the bound)."""
+        srv = self.servers.get(cs_id)
+        if srv is not None:
+            srv.connected = False
+        affected = self.reset_server_parts(cs_id)
+        # a dead server's stale-version parts are gone with it
+        for cid in list(self.stale_versions):
+            entries = self.stale_versions[cid]
+            for key in [k for k in entries if k[0] == cs_id]:
+                del entries[key]
+            if not entries:
+                del self.stale_versions[cid]
+        return affected
+
+    def reset_server_parts(self, cs_id: int) -> list[int]:
+        """Drop every part recorded for ``cs_id`` WITHOUT marking it
+        disconnected — a mirror re-registration (shadow side) replaces
+        the server's part set wholesale with the fresh report. Returns
+        the affected chunk ids (the one part-drop loop both this and
+        server_disconnected share)."""
+        affected = []
+        append = affected.append
+        for (chunk_id, part), chunk in self._server_parts.pop(
+            cs_id, {}
+        ).items():
+            chunk.parts.discard((cs_id, part))
+            append(chunk_id)
+        return affected
+
+    def connected_servers(self) -> list[ChunkServerInfo]:
+        return [s for s in self.servers.values() if s.connected]
+
+    def server_at(self, host: str, port: int):
+        """Addr-indexed lookup (O(1)): client damaged-part reports name
+        holders by address — clients never learn cs_ids."""
+        return self._server_by_addr.get((host, port))
+
+    def audit_index(self) -> list[str]:
+        """Consistency check (tests/debug): chunk.parts and the
+        per-server index must describe the same (cs, chunk, part)
+        triples. Returns human-readable discrepancies, [] when clean."""
+        truth: set[tuple[int, int, int]] = {
+            (cs, cid, part)
+            for cid, chunk in self.chunks.items()
+            for cs, part in chunk.parts
+        }
+        indexed: set[tuple[int, int, int]] = {
+            (cs, cid, part)
+            for cs, entries in self._server_parts.items()
+            for (cid, part) in entries
+        }
+        return (
+            [f"unindexed part {t}" for t in sorted(truth - indexed)]
+            + [f"phantom index entry {t}" for t in sorted(indexed - truth)]
+        )
+
+    # --- chunk lifecycle --------------------------------------------------------
+
+    def create_chunk(self, slice_type: int, chunk_id: int | None = None,
+                     version: int = 1, copies: int = 1,
+                     goal_id: int = 0) -> ChunkInfo:
+        if chunk_id is None:
+            chunk_id = self.next_chunk_id
+        self.next_chunk_id = max(self.next_chunk_id, chunk_id + 1)
+        chunk = ChunkInfo(chunk_id, version, slice_type, copies=copies,
+                          goal_id=goal_id)
+        self.chunks[chunk_id] = chunk
+        return chunk
+
+    def chunk(self, chunk_id: int) -> ChunkInfo:
+        c = self.chunks.get(chunk_id)
+        if c is None:
+            raise KeyError(f"chunk {chunk_id}")
+        return c
+
+    def add_part(self, chunk_id: int, cs_id: int, part_id: int, version: int) -> bool:
+        """Record a part reported by a chunkserver; False = stale/unknown
+        (caller schedules deletion)."""
+        chunk = self.chunks.get(chunk_id)
+        if chunk is None or version != chunk.version:
+            return False
+        cpt = geometry.ChunkPartType.from_id(part_id)
+        if int(cpt.type) != chunk.slice_type:
+            return False
+        self.record_part(chunk, cs_id, cpt.part)
+        return True
+
+    def record_part(self, chunk: ChunkInfo, cs_id: int, part: int) -> None:
+        """The one write path for part locations: keeps chunk.parts and
+        the per-server index in lockstep."""
+        chunk.parts.add((cs_id, part))
+        self._server_parts.setdefault(cs_id, {})[
+            (chunk.chunk_id, part)
+        ] = chunk
+
+    def unregister_parts(
+        self, chunk: ChunkInfo, stale: set[tuple[int, int]]
+    ) -> None:
+        """Drop a set of (cs_id, part) entries (e.g. holders that missed
+        a version bump) keeping the per-server index in lockstep."""
+        chunk.parts -= stale
+        for cs_id, part in stale:
+            idx = self._server_parts.get(cs_id)
+            if idx is not None:
+                idx.pop((chunk.chunk_id, part), None)
+
+    def drop_part(self, chunk_id: int, cs_id: int, part_id: int) -> None:
+        chunk = self.chunks.get(chunk_id)
+        if chunk is None:
+            return
+        cpt = geometry.ChunkPartType.from_id(part_id)
+        chunk.parts.discard((cs_id, cpt.part))
+        idx = self._server_parts.get(cs_id)
+        if idx is not None:
+            idx.pop((chunk_id, cpt.part), None)
+
+    def record_stale(
+        self, chunk_id: int, cs_id: int, part_id: int, version: int
+    ) -> None:
+        """Remember a wrong-version part as repair material (see
+        stale_versions). Bounded per chunk by construction (one entry
+        per (server, part))."""
+        self.stale_versions.setdefault(chunk_id, {})[
+            (cs_id, part_id)
+        ] = version
+
+    def delete_chunk(self, chunk_id: int) -> ChunkInfo | None:
+        self.stale_versions.pop(chunk_id, None)
+        self.boosted.discard(chunk_id)
+        chunk = self.chunks.pop(chunk_id, None)
+        if chunk is not None and chunk.parts:
+            for cs_id, part in chunk.parts:
+                idx = self._server_parts.get(cs_id)
+                if idx is not None:
+                    idx.pop((chunk_id, part), None)
+            self.pending_deletes.append(chunk)
+            if len(self.pending_deletes) > 100_000:
+                del self.pending_deletes[:-100_000]
+        return chunk
+
+    def set_boost(self, chunk_id: int, boost: int) -> None:
+        """The one write path for heat goal boosts: keeps ChunkInfo.boost
+        and the ``boosted`` set in lockstep (goal_boost / goal_demote op
+        application and image load both come through here)."""
+        chunk = self.chunks.get(chunk_id)
+        if chunk is None:
+            return
+        chunk.boost = max(int(boost), 0)
+        if chunk.boost:
+            self.boosted.add(chunk_id)
+        else:
+            self.boosted.discard(chunk_id)
+
+    def release_chunk(self, chunk_id: int) -> None:
+        """Drop one file reference; physical deletion only at zero."""
+        chunk = self.chunks.get(chunk_id)
+        if chunk is None:
+            return
+        chunk.refcount -= 1
+        if chunk.refcount <= 0:
+            self.delete_chunk(chunk_id)
+
+    # --- redundancy evaluation ----------------------------------------------------
+
+    def evaluate(self, chunk: ChunkInfo) -> RedundancyState:
+        t = geometry.SliceType(chunk.slice_type)
+        expected = t.expected_parts
+        by_index = chunk.parts_by_index()
+        live = {
+            p: [c for c in cs_list if self.servers.get(c) and self.servers[c].connected]
+            for p, cs_list in by_index.items()
+        }
+        live = {p: cs for p, cs in live.items() if cs}
+        if t.is_standard:
+            ncopies = len(live.get(0, []))
+            # under goal: each missing copy is a 'missing part 0' work
+            # item; a heat boost raises the wanted count temporarily
+            # (extra copies shed again through the redundant path once
+            # the boost demotes)
+            wanted = chunk.copies + max(chunk.boost, 0)
+            missing = [0] * max(wanted - ncopies, 0)
+            redundant = [
+                (c, 0) for c in live.get(0, [])[wanted:]
+            ]
+            readable = ncopies >= 1
+            # safety is judged against the BASE goal: a boost adds read
+            # fan-out, it never redefines what counts as endangered
+            safe = ncopies >= min(2, chunk.copies)
+            return RedundancyState(
+                missing, redundant, safe, readable,
+                boost_only=bool(missing) and ncopies >= chunk.copies,
+            )
+        missing = [p for p in range(expected) if p not in live]
+        redundant = []
+        for p, cs_list in live.items():
+            for c in cs_list[1:]:
+                redundant.append((c, p))
+        k = geometry.required_parts_to_recover(t)
+        readable = len(live) >= k
+        # safe: losing any one SERVER must still leave >= k distinct
+        # parts. Counting servers (not parts) makes emergency doubled-up
+        # placement (two parts on one server) honestly reduce safety.
+        per_server: dict[int, list[int]] = {}
+        for p, cs_list in live.items():
+            per_server.setdefault(cs_list[0], []).append(p)
+        nlive = len(live)
+        worst_loss = max((len(ps) for ps in per_server.values()), default=0)
+        safe = (nlive - worst_loss) >= k
+        crowded = [
+            (cs, p)
+            for cs, ps in per_server.items() if len(ps) > 1
+            for p in ps[1:]
+        ]
+        return RedundancyState(missing, redundant, safe, readable,
+                               crowded=crowded)
+
+    def mark_endangered(self, chunk_id: int) -> None:
+        if chunk_id not in self._endangered_set:
+            self._endangered_set.add(chunk_id)
+            self.endangered.append(chunk_id)
+
+    # --- server selection (get_servers_for_new_chunk analog) ----------------------
+
+    def choose_servers(self, count: int, exclude: set[int] = frozenset(),
+                       min_free: int = 0,
+                       labels: list[str] | None = None) -> list[ChunkServerInfo]:
+        """Label-aware weighted-by-free-space server choice
+        (GetServersForNewChunk::chooseServersForLabels analog,
+        get_servers_for_new_chunk.h:68-100).
+
+        ``labels[i]`` constrains slot i: a concrete label must match the
+        server's label; the wildcard "_" (or None) accepts any server.
+        Distinct servers are preferred; repeats happen only when there
+        are fewer eligible servers than slots. Labeled slots fall back
+        to the wildcard pool if no labeled server exists (degraded but
+        placed beats unplaced, matching the reference's behavior of
+        preferring availability)."""
+        candidates = [
+            s
+            for s in self.connected_servers()
+            if s.cs_id not in exclude and s.free_space >= min_free
+        ]
+        if not candidates:
+            raise ValueError("no chunkservers available")
+        slot_labels = list(labels) if labels else ["_"] * count
+        if len(slot_labels) < count:
+            slot_labels += ["_"] * (count - len(slot_labels))
+
+        def load_of(s: ChunkServerInfo) -> float:
+            return max(self.server_load.get(s.cs_id, 0.0), 0.0)
+
+        def pick_from(pool: list[ChunkServerInfo]) -> ChunkServerInfo | None:
+            if not pool:
+                return None
+            # observed load scales the free-space weight down: a server
+            # at load 1.0 competes with half its free space (load 0 —
+            # the heat-off state — leaves the weight untouched)
+            weights = [
+                max(s.free_space, 1) / (1.0 + load_of(s)) for s in pool
+            ]
+            return pool[self._rng.choices(range(len(pool)), weights=weights)[0]]
+
+        if count <= len(candidates):
+            # one optimal distinct assignment: greedy label matching can
+            # strand a constrained slot that a different pairing would
+            # satisfy (linear_assignment_optimizer.h)
+            from lizardfs_tpu_torch.master import assignment
+
+            idx = assignment.assign_slots(
+                slot_labels[:count], candidates,
+                jitter=lambda i, j: self._rng.randrange(100),
+                load=lambda j: load_of(candidates[j]),
+            )
+            return [candidates[j] for j in idx]
+
+        # fewer servers than slots: repeats are unavoidable — fill
+        # constrained slots first, weighted-random by free space
+        chosen: dict[int, ChunkServerInfo] = {}
+        used: set[int] = set()
+        order = sorted(range(count), key=lambda i: slot_labels[i] == "_")
+        for i in order:
+            want = slot_labels[i]
+            labeled = [
+                s for s in candidates
+                if (want == "_" or s.label == want) and s.cs_id not in used
+            ]
+            s = pick_from(labeled)
+            if s is None and want != "_":
+                s = pick_from([c for c in candidates if c.cs_id not in used])
+            if s is None:  # all distinct servers used: allow repeats
+                pool = [c for c in candidates if want == "_" or c.label == want]
+                s = pick_from(pool or candidates)
+            chosen[i] = s
+            used.add(s.cs_id)
+        return [chosen[i] for i in range(count)]
+
+    # --- health walk (ChunkWorker coroutine analog) --------------------------------
+
+    # routine-scan evaluation budget per tick: bounds event-loop time
+    # regardless of table size (the endangered queue is served first and
+    # separately)
+    SCAN_BUDGET = 256
+
+    def _scan_batch(self, n: int) -> list[int]:
+        """Next ``n`` chunk ids from the persistent cursor; the id list
+        re-snapshots once per full cycle (O(all chunks) amortized over
+        a whole sweep, never per tick). A wrap publishes the finished
+        cycle's danger aggregate."""
+        if self._scan_idx >= len(self._scan_ids):
+            if self._scan_ids or not self.chunks:
+                # a completed cycle (or an empty table) defines the
+                # aggregate; a fresh registry's first wrap publishes 0s
+                self.danger_counts = (
+                    self._cycle_endangered, self._cycle_lost,
+                    len(self._scan_ids),
+                )
+            self._cycle_endangered = 0
+            self._cycle_lost = 0
+            self._scan_ids = list(self.chunks.keys())
+            self._scan_idx = 0
+            if not self._scan_ids:
+                return []
+        batch = self._scan_ids[self._scan_idx : self._scan_idx + n]
+        self._scan_idx += len(batch)
+        return batch
+
+    def danger_bootstrap(self, budget: int = 4096) -> None:
+        """Bound time-to-first-publish of the danger aggregate.
+
+        The routine walk publishes at cycle WRAP — after a master
+        (re)start with 1M chunks that is a full sweep at
+        SCAN_BUDGET/tick (~an hour), during which /health would report
+        ``lost: 0`` for a table full of unreadable chunks. Until the
+        first publish, each health tick also advances this count-only
+        cursor (``budget`` evaluations, a few ms); whichever cursor
+        completes first publishes. No-op once danger_counts carries a
+        published cycle."""
+        if self.danger_counts[2] or not self.chunks:
+            if self._boot_ids:
+                # routine walk published first: free the snapshot (1M
+                # ids is ~40 MB — must not pin for the registry's life)
+                self._boot_ids = []
+                self._boot_idx = 0
+            return
+        if not self._boot_ids:
+            self._boot_ids = list(self.chunks.keys())
+            self._boot_idx = 0
+            self._boot_endangered = 0
+            self._boot_lost = 0
+        end = min(self._boot_idx + budget, len(self._boot_ids))
+        for cid in self._boot_ids[self._boot_idx:end]:
+            chunk = self.chunks.get(cid)
+            if chunk is None:
+                continue
+            state = self.evaluate(chunk)
+            self.danger_scanned_total += 1
+            if not state.is_readable:
+                self._boot_lost += 1
+            elif state.is_endangered or (
+                state.missing_parts and not state.boost_only
+            ):
+                self._boot_endangered += 1
+        self._boot_idx = end
+        if end >= len(self._boot_ids):
+            if not self.danger_counts[2]:
+                self.danger_counts = (
+                    self._boot_endangered, self._boot_lost,
+                    len(self._boot_ids),
+                )
+            self._boot_ids = []
+
+    def _count_danger(self, state: RedundancyState) -> None:
+        self.danger_scanned_total += 1
+        if not state.is_readable:
+            self._cycle_lost += 1
+        elif state.is_endangered or (
+            state.missing_parts and not state.boost_only
+        ):
+            self._cycle_endangered += 1
+
+    def _chunk_work(self, chunk: ChunkInfo, out: list,
+                    state: RedundancyState | None = None) -> None:
+        if state is None:
+            state = self.evaluate(chunk)
+        for p in state.missing_parts:
+            out.append(("replicate", chunk, p))
+        for cs_id, p in state.redundant:
+            out.append(("delete", chunk, cs_id, p))
+        if state.crowded and not state.missing_parts:
+            # emergency doubled-up placement: migrate the extra part off
+            # as soon as a distinct server is free (keeps the emergency
+            # placement from becoming permanent degraded fault tolerance)
+            holders = {cs for cs, _ in chunk.parts}
+            spare = [
+                s for s in self.connected_servers() if s.cs_id not in holders
+            ]
+            for (cs_id, p), dst in zip(state.crowded, spare):
+                out.append(("move", chunk, cs_id, p, dst.cs_id))
+
+    def health_work(self, limit: int = 64):
+        """Yield up to ``limit`` work items: ('replicate', chunk, part),
+        ('delete', chunk, cs_id, part) or ('move', chunk, src, part, dst).
+
+        Endangered chunks drain FIRST from a real FIFO (items that don't
+        fit this tick simply stay queued); the routine walk then resumes
+        from its cursor with a bounded evaluation budget — one tick costs
+        O(limit + SCAN_BUDGET) whatever the table size."""
+        out = []
+        # 1) priority: endangered queue. Evaluation-bounded too — after
+        # a chunkserver bounce the whole table may be queued but mostly
+        # healthy again, and popping it all in one tick would be an
+        # O(all chunks) stall.
+        pops = 0
+        while self.endangered and len(out) < limit and pops < self.SCAN_BUDGET:
+            pops += 1
+            cid = self.endangered.popleft()
+            self._endangered_set.discard(cid)
+            chunk = self.chunks.get(cid)
+            if chunk is None:
+                continue
+            self._chunk_work(chunk, out)
+        # 2) routine: bounded cursor walk; if the tick fills up, rewind
+        # the cursor over the unvisited remainder — next tick resumes
+        # exactly there
+        batch = self._scan_batch(self.SCAN_BUDGET)
+        for i, cid in enumerate(batch):
+            if len(out) >= limit:
+                self._scan_idx -= len(batch) - i
+                break
+            chunk = self.chunks.get(cid)
+            if chunk is None:
+                continue
+            state = self.evaluate(chunk)
+            # danger aggregate rides the evaluation the walk already
+            # pays for (rewound chunks are re-counted next tick, never
+            # skipped: the cursor only rewinds over UNvisited ids)
+            self._count_danger(state)
+            self._chunk_work(chunk, out, state)
+        if not out:
+            move = self.rebalance_candidate()
+            if move is not None:
+                out.append(move)
+        return out
+
+    # fullness-gap threshold before a part is migrated (fraction)
+    REBALANCE_GAP = 0.20
+
+    def rebalance_candidate(self):
+        """One ('move', chunk, src_cs, part, dst_cs) when the fullest and
+        emptiest servers diverge by more than REBALANCE_GAP (the
+        reference's continuous rebalancing, chunks.cc replication loop).
+        Only healthy, unlocked chunks move; one migration at a time keeps
+        the loop gentle."""
+        servers = [s for s in self.connected_servers() if s.total_space > 0]
+        if len(servers) < 2:
+            return None
+        fullest = max(servers, key=lambda s: s.used_space / s.total_space)
+        emptiest = min(servers, key=lambda s: s.used_space / s.total_space)
+        gap = (fullest.used_space / fullest.total_space
+               - emptiest.used_space / emptiest.total_space)
+        if gap < self.REBALANCE_GAP:
+            return None
+        now = time.monotonic()
+        # bounded scan with a persistent cursor: never walk the whole
+        # chunk table in one health tick (millions of chunks would stall
+        # the event loop while the gap persists with no eligible chunk);
+        # the id snapshot refreshes once per wrap, not per call
+        if self._rebalance_cursor >= len(self._rebalance_ids):
+            self._rebalance_ids = list(self.chunks.keys())
+            self._rebalance_cursor = 0
+        ids = self._rebalance_ids
+        if not ids:
+            return None
+        start = self._rebalance_cursor
+        budget = min(len(ids) - start, 512)
+        for i in range(budget):
+            cid = ids[start + i]
+            self._rebalance_cursor = start + i + 1
+            chunk = self.chunks.get(cid)
+            if chunk is None or chunk.locked_until > now:
+                continue
+            holders = {cs for cs, _ in chunk.parts}
+            if emptiest.cs_id in holders:
+                continue
+            for cs_id, part in sorted(chunk.parts):
+                if cs_id == fullest.cs_id:
+                    if self.evaluate(chunk).needs_work:
+                        break  # unhealthy chunks are repair work, not moves
+                    return ("move", chunk, cs_id, part, emptiest.cs_id)
+        return None

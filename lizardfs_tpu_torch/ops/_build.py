@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
@@ -26,6 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_LOCK = threading.Lock()  # one build at a time in a process
 
 
 def _nvcc() -> str:
@@ -54,7 +56,14 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources into the shared library; a no-op when it exists."""
+    """Compile the sources into the shared library; a no-op when it exists.
+    Threads of one process build once (the temporary file is named by the
+    process); processes each build their own and the last rename wins."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> Path:
     out = library_path()
     if out.exists():
         return out

@@ -18,6 +18,7 @@ tensors holding the uint32 bits (see ``torch_ec``).
 from __future__ import annotations
 
 import functools
+import threading
 import weakref
 
 import numpy as np
@@ -35,6 +36,7 @@ LAUNCHES = {
     "fused_encode_crc": 0,
     "fused_decode_verify": 0,
 }
+_LAUNCHES_LOCK = threading.Lock()  # encoders launch from worker threads
 
 _CRC_THREADS = 256  # CTA size of the CRC kernels (a power of two)
 _GF_THREADS = 256  # CTA size of the GF apply kernel
@@ -48,8 +50,15 @@ _FUSED, _GF_APPLY_VEC, _GF_APPLY_BYTE, _BLOCK_CRC = range(4)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    """One more launch of ``name``'s kernel (called where it launches)."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def resolve_device(device=None) -> torch.device:
@@ -192,7 +201,7 @@ def encode(bigm: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(data.device):
         _launch("gf_apply", lib.lz_gf_apply, gf_tabs.data_ptr(), data.data_ptr(),
                 out.data_ptr(), w, r, n, int(vec), _GF_THREADS, resident, _stream(data))
-    LAUNCHES["encode"] += 1
+    _count("encode")
     return out
 
 
@@ -236,7 +245,7 @@ def block_crcs(blocks: torch.Tensor, block_size: int = MFSBLOCKSIZE) -> torch.Te
                 splits, _CRC_STEPS, _CRC_VECS, crc_tab.data_ptr(), level_tabs.data_ptr(),
                 levels, slab_tab.data_ptr(), k_const, resident, regs.data_ptr(), out.data_ptr(),
                 _stream(blocks))
-    LAUNCHES["block_crcs"] += 1
+    _count("block_crcs")
     return out
 
 
@@ -293,7 +302,7 @@ def fused_encode_crc(
         return torch_ec.fused_encode_crc(bigm, data, block_size)
     k = data.shape[0]
     parity, crcs, _ = _fused_launch(bigm, data, block_size)
-    LAUNCHES["fused_encode_crc"] += 1
+    _count("fused_encode_crc")
     return parity, crcs[:k], crcs[k:]
 
 
@@ -316,6 +325,6 @@ def fused_decode_verify(
     if not _on_card(bigm_rec, survivors, expected_crcs):
         return torch_ec.fused_decode_verify(bigm_rec, survivors, expected_crcs, block_size)
     out = _fused_launch(bigm_rec, survivors, block_size, expected_crcs)
-    LAUNCHES["fused_decode_verify"] += 1
+    _count("fused_decode_verify")
     return out
 

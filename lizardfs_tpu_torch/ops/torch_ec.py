@@ -37,6 +37,10 @@ CRC_SUBBLOCK = 64
 # Blocks per CRC matmul batch: bounds the float32 bit-plane temporary
 # (256 x 64 KiB blocks -> 512 MiB) on large inputs.
 _CRC_ROWS_PER_BATCH = 256
+# Columns per GF matmul batch: bounds the float32 bit-plane temporary
+# (8r x 64 Ki x 4 bytes, 8 MiB at r = 32) where a whole part's would take
+# gigabytes (a rebuild's 22 MiB parts at r = 3: 2 GiB).
+_GF_COLUMNS_PER_BATCH = 1 << 16
 
 
 def is_block_size(block_size: int) -> bool:
@@ -92,8 +96,14 @@ def apply_gf_bitmatrix(bigm: torch.Tensor, parts: torch.Tensor) -> torch.Tensor:
 
     The core primitive behind both encode and recover.
     """
-    acc = bigm.to(torch.float32) @ _unpack_bits_rows(parts)
-    return _pack_bits_rows(acc.to(torch.int32) & 1)
+    mat = bigm.to(torch.float32)
+    out = torch.empty((bigm.shape[0] // 8, parts.shape[1]), dtype=torch.uint8,
+                      device=parts.device)
+    for start in range(0, parts.shape[1], _GF_COLUMNS_PER_BATCH):
+        cols = slice(start, start + _GF_COLUMNS_PER_BATCH)
+        acc = mat @ _unpack_bits_rows(parts[:, cols])
+        out[:, cols] = _pack_bits_rows(acc.to(torch.int32) & 1)
+    return out
 
 
 # The JAX package jits apply_gf_bitmatrix under this name; PyTorch runs

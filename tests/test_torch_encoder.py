@@ -1,6 +1,10 @@
 """The port's CudaChunkEncoder, on the CPU, against the JAX package's
 golden CpuChunkEncoder, method by method (byte-exact)."""
 
+import sys
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -156,3 +160,52 @@ def test_registry_refuses_a_device_for_a_backend_that_takes_none(name):
     backend's one encoder."""
     with pytest.raises(ValueError, match="takes no device"):
         get_encoder(name, "cpu")
+
+
+class SlowEvictions(dict):
+    """A matrix cache that yields the interpreter between choosing the
+    entry to evict and evicting it, where an unguarded cache lets another
+    thread evict the same entry first."""
+
+    def pop(self, key):
+        time.sleep(0.001)
+        return super().pop(key)
+
+
+def test_concurrent_encodes_share_one_encoder(monkeypatch):
+    """The client encodes the chunks of one write in worker threads on
+    one encoder: eight threads encoding and recovering across geometries,
+    with a one-matrix cache that evicts on every miss, get the golden
+    bytes and no error."""
+    monkeypatch.setattr(port_encoder, "_MATRIX_CACHE", 1)
+    enc = CudaChunkEncoder(device="cpu")
+    enc._matrices = SlowEvictions()
+    geometries = [(k, m) for k in (2, 3, 4, 8) for m in (1, 2)]
+    errors = []
+
+    def work(seed):
+        rng = np.random.default_rng(seed)
+        for i in range(6):
+            k, m = geometries[(seed + i) % len(geometries)]
+            data = _parts(rng, k, 64)
+            try:
+                parity = enc.encode(k, m, data)
+                for a, b in zip(parity, ref.encode(k, m, data)):
+                    np.testing.assert_array_equal(a, b)
+                avail = {i: p for i, p in enumerate(data + parity) if i != 0}
+                np.testing.assert_array_equal(enc.recover(k, m, avail, [0])[0], data[0])
+            except Exception as e:  # collected: a thread's failure fails the test
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(seed,)) for seed in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []

@@ -51,12 +51,16 @@ def _crcs(t: torch.Tensor) -> np.ndarray:
 def test_constants_match_reference():
     for name in ("MFSBLOCKSIZE", "MFSBLOCKSINCHUNK", "MFSCHUNKSIZE", "MFSHDRSIZE", "CRC_POLY",
                  "GF_POLY", "EC_MIN_DATA", "EC_MAX_DATA", "EC_MIN_PARITY",
-                 "EC_MAX_PARITY", "XOR_MIN_LEVEL", "XOR_MAX_LEVEL"):
+                 "EC_MAX_PARITY", "XOR_MIN_LEVEL", "XOR_MAX_LEVEL", "MAX_FILE_SIZE",
+                 "EATTR_NOOWNER", "EATTR_NOCACHE", "EATTR_NOENTRYCACHE", "EATTR_LIFECYCLE",
+                 "EATTR_NAMES", "S3_LIFECYCLE_XATTR", "OFF_SPELLINGS"):
         assert getattr(constants, name) == getattr(ref_constants, name), name
 
 
 @pytest.mark.parametrize("name,var", [("shadow_reads_enabled", "LZ_SHADOW_READS"),
-                                      ("qos_enabled", "LZ_QOS"), ("heat_enabled", "LZ_HEAT")])
+                                      ("qos_enabled", "LZ_QOS"), ("heat_enabled", "LZ_HEAT"),
+                                      ("ha_enabled", "LZ_HA"),
+                                      ("s3_lifecycle_enabled", "LZ_S3_LIFECYCLE")])
 def test_kill_switches_match_reference(monkeypatch, name, var):
     for value in (None, "0", "off", "FALSE", "no", "1", "on", "yes"):
         if value is None:
