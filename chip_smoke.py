@@ -79,13 +79,35 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    rebuilds' split summed over them; the kernels' and the copies' device
    time (``torch.profiler``) in one more write and in the heal, as a
    share of each; and two ``profile`` lines of the sampler;
-9. times each kernel and its plain version with CUDA events, the CRC
+9. runs the front doors over a cluster built as in 8: the file (a
+   64 MiB chunk, 1 MiB and 4242 bytes) written three times and read
+   three times through each of a FUSE mount's ctypes callbacks
+   (``LizardFuse``, no kernel mount; ``create``/``open``, ``write`` in
+   1 MiB pieces, ``flush``, ``release``, ``read``, ``getattr``,
+   ``readdir``, then ``.masterinfo`` and one master call through the
+   mount's proxy), the NFSv3 gateway (UNSTABLE ``WRITE``s of its 1 MiB
+   ``wtmax``, ``COMMIT``, ``READ``s) and the S3 gateway (``PUT``,
+   ``GET``, and a three-part multipart upload of the same bytes); the S3
+   object demoted to a port ``TapeServer`` and recalled by a ``GET``;
+   each door's file read three times more with holders of a data part
+   of every file's chunk 0 stopped and the master's rebuilds held back,
+   then the master's heal. Every read is byte-exact; the counters are
+   set to 0 before and read after each step (``encode`` at least once
+   a chunk in each door's first write and in the recall, at least once
+   in each degraded read, ``block_crcs`` at least once in the heal), and
+   every door's client runs on the card's encoder. It prints one
+   ``frontdoor_<door>_ec8_4`` line a door (host-clock medians of the
+   write, with MiB/s, the read and the degraded read; the kernels' and
+   copies' device time in one more write, from ``torch.profiler``, as a
+   share of it; the launches) and a ``frontdoor_tape_recall_ec8_4`` line
+   (the demote, the recalling GET, the heal);
+10. times each kernel and its plain version with CUDA events, the CRC
    wrappers on rows off a 16-byte boundary, the encoder's write and
    one-part rebuild end to end (numpy in and out) at ec(8,4), and the
    ec(32,8) wide-stripe encode and rebuild on the mesh beside one card's
    encoder, and prints one JSON line per kernel and per path, the card,
    and a ``{"kernels": [...]}`` line;
-10. ends with ``{"ok": true, "device": {...}}``.
+11. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero.
 """
@@ -94,6 +116,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import json
 import logging
 import re
@@ -134,6 +157,9 @@ LOST = 3  # the part the rebuild phase loses
 RMW_BLOCKS = (5, 37)  # first block and block count of the degraded read
 CLUSTER_BYTES = 2 * CHUNK + 2**20 + 4242  # the cluster phase's file: two chunks and a tail
 CLUSTER_REPS = 3  # timed writes and reads of the cluster phase
+FRONTDOOR_BYTES = CHUNK + 2**20 + 4242  # each door's file: a chunk and a tail
+FRONTDOOR_REPS = 3  # timed writes and reads of each door
+FRONTDOOR_PIECE = 2**20  # FUSE and NFS write and read size (the gateway's wtmax)
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
     "block_crcs": "lizardfs_tpu/ops/pallas_ec.py:166",
@@ -416,6 +442,9 @@ def main() -> int:
 
     # -- phase 5c: a whole cluster: master, chunkservers, client ----------
     cluster_path(card)
+
+    # -- phase 5d: the front doors: FUSE, NFSv3, S3 and the tape tier ------
+    frontdoor_path(card)
 
     # -- phase 6: timing -------------------------------------------------
     def window_ms(fn, iters):
@@ -1484,6 +1513,463 @@ async def _cluster_path(card: str) -> None:
     }))
     for step, split in profiles.items():
         print(json.dumps({"profile": f"cluster_{step}", **split}))
+
+
+class FuseOps:
+    """A ``LizardFuse`` bridge driven through its ctypes callbacks, with
+    no kernel mount. Every call blocks on the bridge's own event loop,
+    so make them from a worker thread, never from the loop that serves
+    the cluster."""
+
+    def __init__(self, master_port: int):
+        from lizardfs_tpu_torch.client import fuse_mount
+
+        self.fm = fuse_mount
+        self.bridge = fuse_mount.LizardFuse([("127.0.0.1", master_port)])
+        self.ops = None
+
+    def start(self) -> None:
+        self.bridge.start()
+        self.ops = self.bridge.build_operations()
+
+    def close(self) -> None:
+        """The proxy, the client and the pool closed on the bridge's loop,
+        then that loop stopped."""
+        from lizardfs_tpu_torch.core import conn_pool
+
+        bridge = self.bridge
+
+        async def down():
+            if hasattr(bridge, "proxy"):
+                await bridge.proxy.stop()
+            await bridge.client.close()
+            conn_pool.GLOBAL_POOL.close_all()
+
+        try:
+            if self.ops is not None:
+                bridge._run(down(), timeout=30.0)
+        finally:
+            bridge.loop.call_soon_threadsafe(bridge.loop.stop)
+            bridge._loop_thread.join(30.0)
+            bridge.loop.close()
+
+    def handle(self, flags: int = 0):
+        import ctypes
+
+        fi = self.fm.FuseFileInfo()
+        fi.flags = flags
+        return fi, ctypes.pointer(fi)
+
+    def write(self, path: bytes, data: bytes, create: bool) -> int:
+        """``create`` (or ``open``), ``write`` in ``FRONTDOOR_PIECE``
+        pieces, ``flush``, ``release``; returns the inode."""
+        import ctypes
+        import os
+
+        fi, ptr = self.handle(os.O_WRONLY)
+        rc = self.ops.create(path, 0o644, ptr) if create else self.ops.open(path, ptr)
+        require(rc == 0, f"FUSE {'create' if create else 'open'} {path!r}: {rc}")
+        for off in range(0, len(data), FRONTDOOR_PIECE):
+            piece = data[off:off + FRONTDOOR_PIECE]
+            buf = ctypes.create_string_buffer(piece, len(piece))
+            rc = self.ops.write(path, ctypes.addressof(buf), len(piece), off, ptr)
+            require(rc == len(piece), f"FUSE write at {off}: {rc}")
+        require(self.ops.flush(path, ptr) == 0 and self.ops.release(path, ptr) == 0,
+                "FUSE flush and release")
+        return fi.fh
+
+    def read(self, path: bytes, size: int) -> bytes:
+        """``open``, ``read`` in ``FRONTDOOR_PIECE`` pieces, ``release``."""
+        import ctypes
+        import os
+
+        _, ptr = self.handle(os.O_RDONLY)
+        require(self.ops.open(path, ptr) == 0, f"FUSE open {path!r}")
+        out = []
+        buf = ctypes.create_string_buffer(FRONTDOOR_PIECE)
+        for off in range(0, size, FRONTDOOR_PIECE):
+            n = min(FRONTDOOR_PIECE, size - off)
+            rc = self.ops.read(path, ctypes.addressof(buf), n, off, ptr)
+            require(rc == n, f"FUSE read at {off}: {rc}")
+            out.append(buf.raw[:n])
+        require(self.ops.release(path, ptr) == 0, "FUSE release")
+        return b"".join(out)
+
+    def getattr(self, path: bytes):
+        import ctypes
+
+        st = self.fm.Stat()
+        require(self.ops.getattr(path, ctypes.pointer(st)) == 0, f"FUSE getattr {path!r}")
+        return st
+
+    def readdir(self, path: bytes) -> list[bytes]:
+        names = []
+
+        def fill(buf, name, st, off):
+            names.append(name)
+            return 0
+
+        _, ptr = self.handle()
+        require(self.ops.readdir(path, None, self.fm.FILL_DIR_T(fill), 0, ptr) == 0,
+                f"FUSE readdir {path!r}")
+        return names
+
+    def special(self, path: bytes) -> str:
+        """A special inode's text (``.masterinfo``, ``.stats``)."""
+        import ctypes
+
+        _, ptr = self.handle()
+        require(self.ops.open(path, ptr) == 0, f"FUSE open {path!r}")
+        buf = ctypes.create_string_buffer(4096)
+        n = self.ops.read(path, ctypes.addressof(buf), 4096, 0, ptr)
+        self.ops.release(path, ptr)
+        require(n > 0, f"FUSE read {path!r}")
+        return buf.raw[:n].decode()
+
+    def invalidate(self, inode: int) -> None:
+        async def drop():
+            self.bridge.client.cache.invalidate(inode)
+
+        self.bridge._run(drop())
+
+
+def frontdoor_path(card: str) -> None:
+    """The ways users reach the file system, at the shipped ec(8,4) goal,
+    over one cluster as the cluster phase builds it: a FUSE mount's
+    operations (ctypes callbacks, no kernel mount) and its master proxy,
+    the NFSv3 gateway, the S3 gateway (a PUT and a three-part multipart
+    upload) and the tape server (a demoted object recalled by an S3
+    GET); each door's file read whole, then read degraded with holders
+    of data parts of every file's chunk 0 stopped, then the master's
+    heal. Every gateway, server, proxy and client is stopped and the
+    connection pool closed on the way out."""
+    import asyncio
+
+    asyncio.run(_frontdoor_path(card))
+
+
+async def _frontdoor_path(card: str) -> None:
+    import asyncio
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lizardfs_tpu_torch.chunkserver.server import ChunkServer
+    from lizardfs_tpu_torch.client.client import Client
+    from lizardfs_tpu_torch.core import conn_pool, geometry
+    from lizardfs_tpu_torch.core.encoder import get_encoder
+    from lizardfs_tpu_torch.master.server import MasterServer
+    from lizardfs_tpu_torch.nfs.client import Nfs3Client
+    from lizardfs_tpu_torch.nfs.server import NfsGateway
+    from lizardfs_tpu_torch.ops import cuda_ec
+    from lizardfs_tpu_torch.proto import status
+    from lizardfs_tpu_torch.s3.client import S3Client
+    from lizardfs_tpu_torch.s3.server import S3Gateway
+    from lizardfs_tpu_torch.tapeserver.server import TapeServer
+
+    t_phase = time.perf_counter()
+    size, reps = FRONTDOOR_BYTES, FRONTDOOR_REPS
+    goals = geometry.load_goal_config(SHIPPED_GOALS)
+    rng = np.random.default_rng(SEED + 4)
+    data = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+    mpu_sizes = (CHUNK, 2**20, 4242)  # chunk-aligned, so appendchunks shares the first two
+    require(sum(mpu_sizes) == size, "the multipart parts make up the file")
+    want = "cuda" if torch.cuda.device_count() == 1 else "sharded"
+    times = collections.defaultdict(list)
+    launches = {}
+    devices = {}
+    servers, stopped = [], set()
+    master = admin = fuse = nfs_gw = nfs = s3_gw = s3 = tape = None
+    loggers = [logging.getLogger(name) for name in (
+        ChunkServer.name, MasterServer.name, TapeServer.name, "client", "lizardfs.nfs",
+        "lizardfs.nfs.rpc", "lizardfs.s3")]
+    levels = [lg.level for lg in loggers]
+    for lg in loggers:
+        lg.setLevel(logging.ERROR)
+
+    def count(step):
+        sync_all()
+        launches[step] = {k: v for k, v in cuda_ec.LAUNCHES.items() if v}
+        cuda_ec.reset_launches()
+
+    async def profiled(door, fn):
+        """One more write under ``torch.profiler``: the kernels' and the
+        copies' device time beside its host time, and the launches it
+        made."""
+        sync_all()
+        cuda_ec.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+            t = time.perf_counter()
+            await fn()
+            sync_all()
+            ms = (time.perf_counter() - t) * 1e3
+        devices[door] = {"profiled_write_ms": ms, "write_device": kernel_device_ms(tp),
+                         "profiled_launches": {k: v for k, v in cuda_ec.LAUNCHES.items() if v}}
+        cuda_ec.reset_launches()
+
+    async def timed(key, fn, check):
+        """One host-clock timing of ``fn``; ``check`` holds its result."""
+        t = time.perf_counter()
+        out = await fn()
+        sync_all()
+        times[key].append(time.perf_counter() - t)
+        require(check(out), key)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_frontdoor_") as root:
+        try:
+            master = MasterServer(f"{root}/master", goals=goals, health_interval=0.2)
+            await master.start()
+            for i in range(K + M + 1):
+                cs = ChunkServer(f"{root}/cs{i}", master_addr=("127.0.0.1", master.port),
+                                 encoder=get_encoder("cuda"))
+                await cs.start()
+                servers.append(cs)
+            admin = Client("127.0.0.1", master.port)
+            await admin.connect()
+            # new files take their directory's goal: the root's for FUSE
+            # and NFS, the S3 staging directory's for objects
+            await admin.setgoal(1, 10)
+            staging = await admin.mkdir(1, ".s3mpu")
+            await admin.setgoal(staging.inode, 10)
+            inodes = {}
+
+            # 1. FUSE: the bridge's client encodes on the bridge's own loop
+            fuse = FuseOps(master.port)
+            require(fuse.bridge.client.encoder.name == want, f"the mount's encoder is {want!r}")
+            await asyncio.to_thread(fuse.start)
+            cuda_ec.reset_launches()
+            for rep in range(reps):
+                inodes["fuse"] = await timed(
+                    "fuse_write_ms", lambda: asyncio.to_thread(fuse.write, b"/fuse.bin", data, rep == 0),
+                    bool)
+                if rep == 0:
+                    count("fuse_write")
+            await profiled("fuse", lambda: asyncio.to_thread(fuse.write, b"/fuse.bin", data, False))
+            st = await asyncio.to_thread(fuse.getattr, b"/fuse.bin")
+            require(st.st_size == size and st.st_ino == inodes["fuse"], "FUSE getattr of the file")
+            require(b"fuse.bin" in await asyncio.to_thread(fuse.readdir, b"/"), "FUSE readdir")
+            for _ in range(reps):
+                await timed("fuse_read_ms",
+                            lambda: asyncio.to_thread(fuse.read, b"/fuse.bin", size), data.__eq__)
+            count("fuse_read")
+            info = await asyncio.to_thread(fuse.special, b"/.masterinfo")
+            proxy_port = int(re.search(r"masterproxy: 127\.0\.0\.1:(\d+)", info).group(1))
+            tool = Client("127.0.0.1", proxy_port)
+            await tool.connect()
+            try:
+                attr = await tool.lookup(1, "fuse.bin")
+                require(attr.inode == inodes["fuse"] and attr.length == size,
+                        "a master call through the mount's proxy")
+            finally:
+                await tool.close()
+
+            # 2. NFSv3: UNSTABLE writes of the server's wtmax, COMMIT, READs
+            nfs_gw = NfsGateway("127.0.0.1", master.port)
+            require(nfs_gw.client.encoder.name == want, f"the NFS gateway's encoder is {want!r}")
+            await nfs_gw.start()
+            nfs = Nfs3Client("127.0.0.1", nfs_gw.port)
+            await nfs.__aenter__()
+            root_fh = await nfs.mnt("/")
+            fsinfo = await nfs.fsinfo(root_fh)
+            require(fsinfo["wtmax"] == fsinfo["rtmax"] == FRONTDOOR_PIECE, f"NFS FSINFO {fsinfo}")
+            code, fh = await nfs.create(root_fh, "nfs.bin")
+            require(code == 0, f"NFS CREATE: {code}")
+            inodes["nfs"] = int.from_bytes(fh[4:], "big")
+
+            async def nfs_write():
+                for off in range(0, size, FRONTDOOR_PIECE):
+                    await nfs.write(fh, off, data[off:off + FRONTDOOR_PIECE], stable=0)
+                await nfs.commit(fh)
+
+            async def nfs_read():
+                out = []
+                for off in range(0, size, FRONTDOOR_PIECE):
+                    piece, _ = await nfs.read(fh, off, FRONTDOOR_PIECE)
+                    out.append(piece)
+                return b"".join(out)
+
+            for rep in range(reps):
+                await timed("nfs_write_ms", nfs_write, lambda _: True)
+                if rep == 0:
+                    count("nfs_write")
+            await profiled("nfs", nfs_write)
+            require((await nfs.getattr(fh))["size"] == size, "NFS GETATTR of the file")
+            for _ in range(reps):
+                await timed("nfs_read_ms", nfs_read, data.__eq__)
+            count("nfs_read")
+
+            # 3. S3: PUT, then a three-part multipart upload of the same bytes
+            s3_gw = S3Gateway("127.0.0.1", master.port)
+            require(s3_gw.client.encoder.name == want, f"the S3 gateway's encoder is {want!r}")
+            await s3_gw.start()
+            s3 = S3Client("127.0.0.1", s3_gw.port)
+            await s3.create_bucket("doors")
+            etag = hashlib.md5(data).hexdigest()
+            for rep in range(reps):
+                await timed("s3_write_ms", lambda: s3.put_object("doors", "s3.bin", data),
+                            lambda r: r.etag == etag)
+                if rep == 0:
+                    count("s3_write")
+            await profiled("s3", lambda: s3.put_object("doors", "s3.bin", data))
+            for _ in range(reps):
+                await timed("s3_read_ms", lambda: s3.get_object("doors", "s3.bin"),
+                            lambda r: r.body == data)
+            count("s3_read")
+
+            async def multipart():
+                upload = await s3.create_multipart("doors", "mpu.bin")
+                etags, off = [], 0
+                for n, part in enumerate(mpu_sizes):
+                    etags.append(await s3.upload_part("doors", "mpu.bin", upload, n + 1,
+                                                      data[off:off + part]))
+                    off += part
+                return await s3.complete_multipart("doors", "mpu.bin", upload,
+                                                   list(enumerate(etags, 1)))
+
+            await timed("s3_multipart_write_ms", multipart, lambda r: r.status == 200)
+            count("s3_multipart_write")
+            await timed("s3_multipart_read_ms", lambda: s3.get_object("doors", "mpu.bin"),
+                        lambda r: r.body == data)
+            count("s3_multipart_read")
+            inodes["s3"] = (await admin.resolve("/doors/s3.bin")).inode
+            inodes["s3_multipart"] = (await admin.resolve("/doors/mpu.bin")).inode
+
+            # 4. the tape tier: demote the S3 object (the master's forced
+            # archive first), then a GET recalls it, writing it back
+            # through the tape server's client
+            tape = TapeServer(f"{root}/tape", ("127.0.0.1", master.port))
+            await tape.start()
+            require(tape.client.encoder.name == want, f"the tape server's encoder is {want!r}")
+            t = time.perf_counter()
+            while True:
+                try:
+                    await admin.tape_demote(inodes["s3"])
+                    break
+                except status.StatusError as e:
+                    require(e.code == status.CHUNK_BUSY and time.perf_counter() - t < 120.0,
+                            f"the demote: {e}")
+                    await asyncio.sleep(0.05)
+            demote_s = time.perf_counter() - t
+            require(inodes["s3"] in master.meta.demoted
+                    and not master.meta.fs.nodes[inodes["s3"]].chunks,
+                    "the demoted object holds no chunk")
+            cuda_ec.reset_launches()
+            await timed("recall_get_ms", lambda: s3.get_object("doors", "s3.bin"),
+                        lambda r: r.body == data and r.etag == etag)
+            count("recall")
+            require(s3_gw.metrics.counter("s3_recalls").total == 1, "the GET recalled the object")
+
+            # 5. degraded: stop holders of a data part of chunk 0 of every
+            # door's file (as few servers as cover them all), the master's
+            # rebuilds held back until the reads are done
+            chunks = list(master.meta.registry.chunks.values())
+            for c in chunks:
+                master._repl_fail_until[c.chunk_id] = time.monotonic() + 3600.0
+            holders = {door: {cs for cs, p in master.meta.registry.chunks[
+                master.meta.fs.nodes[inode].chunks[0]].parts if p < K}
+                for door, inode in inodes.items()}
+            victims = []
+            while any(not (h & set(victims)) for h in holders.values()):
+                victims.append(collections.Counter(
+                    cs for h in holders.values() if not (h & set(victims)) for cs in h
+                ).most_common(1)[0][0])
+            require(len(victims) <= M, f"{len(victims)} servers cover every file's chunk 0")
+            t = time.perf_counter()
+            for cs_id in victims:
+                port = master.meta.registry.servers[cs_id].port
+                i = next(i for i, cs in enumerate(servers) if cs.port == port)
+                await servers[i].stop()
+                stopped.add(i)
+            while any(master.meta.registry.servers[v].connected for v in victims):
+                require(time.perf_counter() - t < 30.0, "the master sees the servers go")
+                await asyncio.sleep(0.005)
+            cuda_ec.reset_launches()
+            for _ in range(reps):
+                await asyncio.to_thread(fuse.invalidate, inodes["fuse"])
+                await timed("fuse_degraded_read_ms",
+                            lambda: asyncio.to_thread(fuse.read, b"/fuse.bin", size), data.__eq__)
+            count("fuse_degraded_read")
+            for _ in range(reps):
+                nfs_gw.client.cache.invalidate(inodes["nfs"])
+                await timed("nfs_degraded_read_ms", nfs_read, data.__eq__)
+            count("nfs_degraded_read")
+            for _ in range(reps):
+                s3_gw.client.cache.invalidate(inodes["s3"])
+                await timed("s3_degraded_read_ms", lambda: s3.get_object("doors", "s3.bin"),
+                            lambda r: r.body == data)
+            count("s3_degraded_read")
+            s3_gw.client.cache.invalidate(inodes["s3_multipart"])
+            await timed("s3_multipart_degraded_read_ms", lambda: s3.get_object("doors", "mpu.bin"),
+                        lambda r: r.body == data)
+            count("s3_multipart_degraded_read")
+
+            # 6. the master's heal of every lost part
+            t = time.perf_counter()
+            master._repl_fail_until.clear()
+            while any(master.meta.registry.evaluate(c).missing_parts
+                      for c in master.meta.registry.chunks.values()):
+                require(time.perf_counter() - t < 300.0, "the master heals every lost part")
+                await asyncio.sleep(0.01)
+            sync_all()
+            heal_s = time.perf_counter() - t
+            count("heal")
+        finally:
+            if s3 is not None:
+                await s3.close()
+            if nfs is not None:
+                await nfs.__aexit__(None, None, None)
+            for gw in (s3_gw, nfs_gw, tape):
+                if gw is not None:
+                    await gw.stop()
+            if fuse is not None:
+                await asyncio.to_thread(fuse.close)
+            if admin is not None:
+                await admin.close()
+            for i, cs in enumerate(servers):
+                if i not in stopped:
+                    await cs.stop()
+            if master is not None:
+                await master.stop()
+            conn_pool.GLOBAL_POOL.close_all()
+            for lg, level in zip(loggers, levels):
+                lg.setLevel(level)
+
+    nchunks = -(-size // CHUNK)
+    for door in ("fuse", "nfs", "s3", "s3_multipart"):
+        require(launches[f"{door}_degraded_read"].get("encode", 0) >= 1,
+                f"encode launched in the {door} degraded read")
+    for step in ("fuse_write", "nfs_write", "s3_write", "recall"):
+        require(launches[step].get("encode", 0) >= nchunks,
+                f"encode launched {nchunks}+ times in the {step}")
+    require(launches["heal"].get("block_crcs", 0) >= 1, "block_crcs launched in the heal")
+    print(f"front doors: encoder {want}, launches {json.dumps(launches)}, "
+          f"{len(victims)} servers stopped")
+    for door in ("fuse", "nfs", "s3"):
+        write_ms = median_ms(times[f"{door}_write_ms"])
+        device = devices[door]
+        line = {
+            "path": f"frontdoor_{door}_ec8_4", "reps": reps, "file_bytes": size,
+            "write_ms": write_ms, "write_ms_each": [t * 1e3 for t in times[f"{door}_write_ms"]],
+            "write_MiB_s": size / 2**20 / (write_ms / 1e3),
+            "read_ms": median_ms(times[f"{door}_read_ms"]),
+            "degraded_read_ms": median_ms(times[f"{door}_degraded_read_ms"]),
+            **device,
+            "write_kernel_share": device["write_device"]["kernels_ms"] / device["profiled_write_ms"],
+            "launches": {k: v for k, v in launches.items() if k.startswith(door)},
+            "encoder": want, "card": card,
+        }
+        if door == "s3":
+            line.update({k: median_ms(times[k]) for k in (
+                "s3_multipart_write_ms", "s3_multipart_read_ms", "s3_multipart_degraded_read_ms")})
+        print(json.dumps(line))
+    print(json.dumps({
+        "path": "frontdoor_tape_recall_ec8_4", "file_bytes": size, "demote_ms": demote_s * 1e3,
+        "recall_get_ms": median_ms(times["recall_get_ms"]), "heal_ms": heal_s * 1e3,
+        "servers_stopped": len(victims), "launches": {k: launches[k] for k in ("recall", "heal")},
+        "phase_s": time.perf_counter() - t_phase, "encoder": want, "card": card,
+    }))
+
 
 
 if __name__ == "__main__":

@@ -86,6 +86,12 @@ def ha_enabled() -> bool:
     return env_flag("LZ_HA")
 
 
+def s3_enabled() -> bool:
+    """LZ_S3 (default on): the S3 object gateway starts; off, it refuses
+    to start (a gateway that is up keeps serving)."""
+    return env_flag("LZ_S3")
+
+
 def s3_lifecycle_enabled() -> bool:
     """LZ_S3_LIFECYCLE (default on): the master's lifecycle tiering
     scanner demotes cold objects of directories that carry rules."""
@@ -112,3 +118,6 @@ EATTR_NAMES = {
 # Directory xattr holding the lifecycle rule parameters as JSON
 # ({"demote_after_s": seconds}).
 S3_LIFECYCLE_XATTR = "lizardfs.s3.lifecycle"
+# Object-file xattr holding the S3 ETag the gateway computed at PUT or
+# CompleteMultipartUpload time (served back on GET, HEAD and List).
+S3_ETAG_XATTR = "lizardfs.s3.etag"

@@ -165,6 +165,18 @@ class Cluster:
         await cs.stop()
         self.chunkservers.remove(cs)
 
+    async def stop_data_holder(self, inode: int, data_parts: int) -> int:
+        """Stop the server that holds the lowest data part of the file's
+        first chunk, unless a stopped server holds one already; returns
+        the count of that chunk's parts."""
+        registry = self.master.meta.registry
+        chunk = registry.chunks[self.master.meta.fs.nodes[inode].chunks[0]]
+        holders = [cs for cs, p in sorted(chunk.parts) if p < data_parts]
+        live = {cs.port for cs in self.chunkservers}
+        if all(registry.servers[cs].port in live for cs in holders):
+            await self.stop_server(self.holder(holders[0]))
+        return len(chunk.parts)
+
     def parts(self) -> dict[tuple[int, int], bytes]:
         """Every live server's part files by (chunk id, part id); copies
         of one part must be identical."""
@@ -174,6 +186,11 @@ class Cluster:
                 data = Path(cf.path).read_bytes()
                 assert out.setdefault((cf.chunk_id, cf.part_id), data) == data
         return out
+
+    def live_parts(self) -> dict[tuple[int, int], bytes]:
+        """The part files of the chunks the master still holds (a
+        deleted chunk's files leave the servers in the background)."""
+        return {k: v for k, v in self.parts().items() if k[0] in self.master.meta.registry.chunks}
 
     async def stop(self):
         for c in self.clients:

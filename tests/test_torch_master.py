@@ -19,6 +19,7 @@ Every case is in process and exact; the master clusters run in
 """
 
 import base64
+import difflib
 import importlib
 import random
 import re
@@ -58,6 +59,20 @@ def assert_copy(rel: str) -> None:
     for want, got in zip(ref, port):
         assert got == want or (CHANGE_REFERENCE.search(want)
                                and not CHANGE_REFERENCE.search(got)), (rel, want, got)
+
+
+def assert_departs(rel: str, removed: list[str], added: list[str]) -> None:
+    """The port's ``rel`` is the renamed original but for exactly the
+    lines ``removed`` and ``added`` (stripped, in order)."""
+    ref = renamed(rel).splitlines()
+    port = (ROOT / "lizardfs_tpu_torch" / rel).read_text().splitlines()
+    gone, new = [], []
+    for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(None, ref, port, autojunk=False).get_opcodes():
+        if tag != "equal":
+            gone += [line.strip() for line in ref[i1:i2]]
+            new += [line.strip() for line in port[j1:j2]]
+    assert gone == removed, rel
+    assert new == added, rel
 
 
 def mod(pkg: str, name: str):
