@@ -101,13 +101,37 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    copies' device time in one more write, from ``torch.profiler``, as a
    share of it; the launches) and a ``frontdoor_tape_recall_ec8_4`` line
    (the demote, the recalling GET, the heal);
-10. times each kernel and its plain version with CUDA events, the CRC
+10. runs failover on the card: a port master, its shadow and a port
+   ``Metalogger`` in a three-node quorum wired as the entry points wire
+   it (a ``FailoverController`` on each master, a vote-only
+   ``ElectionNode`` on the metalogger; election timeout
+   ``FAILOVER_ELECTION_TIMEOUT``, heartbeat ``FAILOVER_HEARTBEAT``) over
+   thirteen chunkservers with both master addresses at the shipped
+   goal; the file (a chunk, 1 MiB and 4242 bytes) written by the port's
+   ``lizardfs put`` (``tools.cli.main``, its client on the card), the
+   shadow and the metalogger caught up, the active master and its
+   controller stopped, the shadow elected and promoted (exactly once,
+   after the kill), every server registered again; a holder of a data
+   part of chunk 0 stopped with the new master's rebuilds held back and
+   the file read degraded by ``lizardfs get``, ``lizardfs cat`` and a
+   ``Client`` on both addresses, then the new master's heal (chunk 0's
+   rebuilt part against the numpy golden bytes and CRCs) and one more
+   read; ``lizardfs-admin metadata-checksum`` of the new master against
+   a ``metarestore`` of the metalogger's archive, and ``metadump`` of
+   it. The counters are set to 0 before and read after each step
+   (``encode`` at least once a chunk in the write and once in each
+   degraded read and the heal, ``block_crcs`` in the heal). It prints a
+   ``failover_ec8_4`` line: the write (and MiB/s), kill to promotion
+   (``last_promotion_at``), kill to a client's first reply from the new
+   master, kill to every server registered again, the degraded reads'
+   median, the heal, the elections and promotions, the launches;
+11. times each kernel and its plain version with CUDA events, the CRC
    wrappers on rows off a 16-byte boundary, the encoder's write and
    one-part rebuild end to end (numpy in and out) at ec(8,4), and the
    ec(32,8) wide-stripe encode and rebuild on the mesh beside one card's
    encoder, and prints one JSON line per kernel and per path, the card,
    and a ``{"kernels": [...]}`` line;
-11. ends with ``{"ok": true, "device": {...}}``.
+12. ends with ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero.
 """
@@ -160,6 +184,14 @@ CLUSTER_REPS = 3  # timed writes and reads of the cluster phase
 FRONTDOOR_BYTES = CHUNK + 2**20 + 4242  # each door's file: a chunk and a tail
 FRONTDOOR_REPS = 3  # timed writes and reads of each door
 FRONTDOOR_PIECE = 2**20  # FUSE and NFS write and read size (the gateway's wtmax)
+FAILOVER_BYTES = FRONTDOOR_BYTES  # the failover phase's file
+# the failover phase's election timing: wider than the entry point's
+# defaults (0.15-0.30 s, heartbeat 0.05 s), since every daemon shares
+# this process's one event loop and a busy write must not starve the
+# active's heartbeats into an election
+FAILOVER_ELECTION_TIMEOUT = (2.0, 4.0)
+FAILOVER_HEARTBEAT = 0.1
+FAILOVER_PROMOTION_S = 30.0  # the bound on kill -> promotion
 REPLACES = {
     "encode": "lizardfs_tpu/ops/pallas_ec.py:108",
     "block_crcs": "lizardfs_tpu/ops/pallas_ec.py:166",
@@ -445,6 +477,9 @@ def main() -> int:
 
     # -- phase 5d: the front doors: FUSE, NFSv3, S3 and the tape tier ------
     frontdoor_path(card)
+
+    # -- phase 5e: failover: the quorum, the promoted shadow, the tools ----
+    failover_path(card)
 
     # -- phase 6: timing -------------------------------------------------
     def window_ms(fn, iters):
@@ -1970,6 +2005,326 @@ async def _frontdoor_path(card: str) -> None:
         "phase_s": time.perf_counter() - t_phase, "encoder": want, "card": card,
     }))
 
+
+def free_udp_port() -> int:
+    """A localhost UDP port free now (an election node binds it next)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def failover_path(card: str) -> None:
+    """Metadata redundancy on the card: a port master, its shadow and a
+    metalogger in a three-node quorum over thirteen chunkservers at the
+    shipped ec(8,4) goal; a file written with the port's ``lizardfs
+    put``, the active master stopped, the shadow elected and promoted,
+    the file read degraded through it, healed by its health loop, and its
+    metadata checksum held against a ``metarestore`` of the metalogger's
+    archive. Every daemon, node and client is stopped and the connection
+    pool closed on the way out."""
+    import asyncio
+
+    asyncio.run(_failover_path(card))
+
+
+async def _failover_path(card: str) -> None:
+    import asyncio
+    import io
+    import os
+
+    import torch
+
+    from lizardfs_tpu_torch.chunkserver.server import ChunkServer
+    from lizardfs_tpu_torch.client.client import Client
+    from lizardfs_tpu_torch.core import conn_pool, geometry
+    from lizardfs_tpu_torch.core.encoder import CpuChunkEncoder, get_encoder
+    from lizardfs_tpu_torch.ha.controller import FailoverController
+    from lizardfs_tpu_torch.ha.election import LEADER, ElectionNode
+    from lizardfs_tpu_torch.master.changelog import load_image
+    from lizardfs_tpu_torch.master.metadata import MetadataStore
+    from lizardfs_tpu_torch.master.server import MasterServer
+    from lizardfs_tpu_torch.metalogger.server import Metalogger
+    from lizardfs_tpu_torch.ops import crc32, cuda_ec
+    from lizardfs_tpu_torch.tools import admin_cli, cli, metadump, metarestore
+    from lizardfs_tpu_torch.utils import striping
+
+    t_phase = time.perf_counter()
+    loop = asyncio.get_running_loop()
+    size = FAILOVER_BYTES
+    goals = geometry.load_goal_config(SHIPPED_GOALS)
+    st = goals[10].disk_slice().type
+    data = np.random.default_rng(SEED + 5).integers(0, 256, size, dtype=np.uint8).tobytes()
+    nchunks = -(-size // CHUNK)
+    want = "cuda" if torch.cuda.device_count() == 1 else "sharded"
+    timing = {"election_timeout": FAILOVER_ELECTION_TIMEOUT,
+              "heartbeat_interval": FAILOVER_HEARTBEAT}
+    times, launches, made = {}, {}, []
+    servers, stopped = [], set()
+    active = shadow = ml = witness = probe = None
+    ctrls = {}
+    cli_client = cli.Client
+
+    class Counted(cli_client):
+        """The CLI's client, recorded so the phase can read its encoder."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    def count(step):
+        sync_all()
+        launches[step] = {k: v for k, v in cuda_ec.LAUNCHES.items() if v}
+        cuda_ec.reset_launches()
+
+    async def until(cond, what, timeout):
+        t = time.perf_counter()
+        while not cond():
+            require(time.perf_counter() - t < timeout, what)
+            await asyncio.sleep(0.005)
+        return time.perf_counter() - t
+
+    async def lizardfs(*argv, stdout=None):
+        """The port's ``lizardfs`` CLI, ``main`` itself, on a worker
+        thread (it runs its own event loop), its client on the card."""
+        args = ["--master", ",".join(f"{h}:{p}" for h, p in addrs), *argv]
+        with contextlib.redirect_stdout(stdout) if stdout else contextlib.nullcontext():
+            rc = await asyncio.to_thread(cli.main, args, None)
+        require(rc == 0, f"lizardfs {argv[0]} exits 0")
+
+    # every daemon shares this loop: the stall and election warnings of
+    # a busy loop are counted by the daemons, not printed
+    logging.disable(logging.WARNING)
+    cli.Client = Counted
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_failover_") as root:
+        try:
+            local = os.path.join(root, "failover.bin")
+            with open(local, "wb") as fh:
+                fh.write(data)
+            active = MasterServer(f"{root}/m1", goals=goals, health_interval=0.2)
+            await active.start()
+            shadow = MasterServer(f"{root}/m2", goals=goals, health_interval=0.2,
+                                  personality="shadow", active_addr=("127.0.0.1", active.port))
+            await shadow.start()
+            # the quorum as the entry points wire it: a controller on each
+            # master, a vote-only node on the metalogger
+            service = {"a": ("127.0.0.1", active.port), "b": ("127.0.0.1", shadow.port)}
+            addrs = list(service.values())
+            vote = {nid: ("127.0.0.1", free_udp_port()) for nid in ("a", "b", "ml")}
+            ml = Metalogger(f"{root}/ml", list(addrs), image_interval=2.0)
+
+            def peers(nid):
+                return {k: v for k, v in vote.items() if k != nid}
+
+            for nid, master in (("a", active), ("b", shadow)):
+                ctrls[nid] = FailoverController(master, nid, vote[nid], peers(nid),
+                                                service_addrs=service, **timing)
+                master.ha_controller = ctrls[nid]
+
+            async def ml_leads():
+                raise RuntimeError("a vote-only metalogger won an election")
+
+            async def ml_follows(leader):
+                if leader in service:
+                    ml.prefer(service[leader])
+
+            witness = ElectionNode("ml", vote["ml"], peers("ml"), get_version=lambda: ml.version,
+                                   on_leader=ml_leads, on_follower=ml_follows, can_lead=False,
+                                   **timing)
+            await ml.start()
+            await witness.start()
+            await ctrls["a"].start()
+            await until(lambda: ctrls["a"].node.state == LEADER, "the active master leads", 60.0)
+            await ctrls["b"].start()
+            await until(lambda: ctrls["b"].node.leader_id == "a", "the shadow follows", 30.0)
+            for i in range(K + M + 1):
+                cs = ChunkServer(f"{root}/cs{i}", master_addr=list(addrs),
+                                 encoder=get_encoder("cuda"), heartbeat_interval=0.2)
+                await cs.start()
+                servers.append(cs)
+            await until(lambda: len(active.cs_links) == K + M + 1, "the servers register", 30.0)
+
+            # 1. the file written by `lizardfs put`, its client on the card
+            cuda_ec.reset_launches()
+            t = time.perf_counter()
+            await lizardfs("put", local, "/failover.bin", "--goal", "10")
+            times["write"] = time.perf_counter() - t
+            count("write")
+            require([c.encoder.name for c in made] == [want], f"the CLI's encoder is {want!r}")
+            node = next(n for n in active.meta.fs.nodes.values() if n.length == size)
+            require(len(node.chunks) == nchunks, f"the file holds {nchunks} chunks")
+            chunks = [active.meta.registry.chunks[c] for c in node.chunks]
+            require(all(len(c.parts) == K + M for c in chunks), "every chunk has its twelve parts")
+
+            # 2. the shadow and the metalogger apply the changelog's tail
+            tail = active.changelog.version
+            await until(lambda: shadow.changelog.version == tail and ml.version == tail,
+                        "the shadow and the metalogger apply the tail", 60.0)
+            probe = Client("", 0, master_addrs=list(addrs))
+            await probe.connect()
+            probe.shadow_reads = False  # its replies come from the active master only
+            inode = (await probe.resolve("/failover.bin")).inode
+            victim_id = next(cs for cs, p in sorted(chunks[0].parts) if p < K)
+            victim_port = active.meta.registry.servers[victim_id].port
+            victim = next(i for i, cs in enumerate(servers) if cs.port == victim_port)
+            lost = {c.chunk_id: p for c in chunks for cs, p in c.parts if cs == victim_id}
+            # the new master's rebuilds held back (its per-chunk retry
+            # backoff) until the degraded reads are done
+            for c in chunks:
+                shadow._repl_fail_until[c.chunk_id] = time.monotonic() + 3600.0
+
+            # 3. the active master and its controller stop; the shadow
+            # is elected and promotes itself
+            elections = {nid: n.node.elections_started for nid, n in ctrls.items()}
+            require(ctrls["a"].promotions == ctrls["b"].promotions == 0,
+                    "no promotion before the kill")
+            t_kill, kill_at = time.perf_counter(), loop.time()
+
+            async def first_reply():
+                while True:
+                    try:
+                        await probe.getattr(inode)
+                        return time.perf_counter() - t_kill
+                    except (ConnectionError, OSError, asyncio.TimeoutError):
+                        await asyncio.sleep(0.005)
+
+            async def reregistered():
+                await until(lambda: len(shadow.cs_links) == K + M + 1,
+                            "every server registers with the new master", 60.0)
+                return time.perf_counter() - t_kill
+
+            await ctrls["a"].stop()
+            await active.stop()
+            replied = asyncio.ensure_future(first_reply())
+            registered = asyncio.ensure_future(reregistered())
+            await until(lambda: shadow.personality == "master", "the shadow is promoted",
+                        FAILOVER_PROMOTION_S)
+            require(ctrls["b"].promotions == 1 and ctrls["a"].promotions == 0,
+                    "exactly one promotion")
+            promoted_s = ctrls["b"].last_promotion_at - kill_at
+            require(0 < promoted_s < FAILOVER_PROMOTION_S, "the promotion came after the kill")
+            reply_s = await asyncio.wait_for(replied, 60.0)
+            registered_s = await registered
+
+            # 4. a holder of a data part of chunk 0 stops; the file read
+            # degraded through the new master three times: `lizardfs get`,
+            # `lizardfs cat`, and a client on both addresses
+            await servers[victim].stop()
+            stopped.add(victim)
+            await until(lambda: not shadow.meta.registry.servers[victim_id].connected,
+                        "the new master sees the server go", 30.0)
+            degraded = []
+            cuda_ec.reset_launches()
+            got = os.path.join(root, "got.bin")
+            t = time.perf_counter()
+            await lizardfs("get", "/failover.bin", got)
+            degraded.append(time.perf_counter() - t)
+            count("degraded_get")
+            with open(got, "rb") as fh:
+                require(fh.read() == data, "the degraded `lizardfs get`")
+            out = io.TextIOWrapper(io.BytesIO(), write_through=True)
+            t = time.perf_counter()
+            await lizardfs("cat", "/failover.bin", stdout=out)
+            degraded.append(time.perf_counter() - t)
+            count("degraded_cat")
+            require(out.buffer.getvalue() == data, "the degraded `lizardfs cat`")
+            probe.cache.invalidate(inode)
+            t = time.perf_counter()
+            back = await probe.read_file(inode)
+            sync_all()
+            degraded.append(time.perf_counter() - t)
+            count("degraded_client")
+            require(back == data, "the degraded read of a client on both addresses")
+
+            # 5. the new master's health loop heals every lost part (of
+            # its own registry's chunks)
+            chunks = [shadow.meta.registry.chunks[c.chunk_id] for c in chunks]
+            t = time.perf_counter()
+            shadow._repl_fail_until.clear()
+            await until(lambda: not any(shadow.meta.registry.evaluate(c).missing_parts
+                                        for c in chunks),
+                        "the new master's health loop heals every lost part", 180.0)
+            sync_all()
+            times["heal"] = time.perf_counter() - t
+            count("heal")
+            golden = striping.split_chunk(np.frombuffer(data[:CHUNK], np.uint8), st,
+                                          CpuChunkEncoder())
+            part0 = lost[chunks[0].chunk_id]
+            part_id = geometry.ChunkPartType(st, part0).id
+            live = [cs for i, cs in enumerate(servers) if i not in stopped]
+            holder = next(cs for cs in live if cs.store.get(chunks[0].chunk_id, part_id))
+            check_rebuilt(holder.store, chunks[0].chunk_id, part_id, golden[part0],
+                          crc32.block_crcs_golden(golden[part0].reshape(-1, BS)))
+            probe.cache.invalidate(inode)
+            require(await probe.read_file(inode) == data, "the file read after the heal")
+            cuda_ec.reset_launches()
+
+            # 6. the new master's metadata checksum, from lizardfs-admin,
+            # against a metarestore of the metalogger's archive
+            await until(lambda: ml.version == shadow.changelog.version,
+                        "the metalogger follows the new master", 60.0)
+            admin_out = io.StringIO()
+            with contextlib.redirect_stdout(admin_out):
+                rc = await admin_cli._amain([f"127.0.0.1:{shadow.port}", "metadata-checksum"])
+            require(rc == 0, "lizardfs-admin metadata-checksum exits 0")
+            live_doc = json.loads(admin_out.getvalue())
+            _, restored_version = metarestore.restore(f"{root}/ml", f"{root}/restored",
+                                                      verbose=False)
+            version, doc = load_image(f"{root}/restored")
+            restored = MetadataStore()
+            restored.load_sections(doc)
+            require(restored_version == version == live_doc["version"],
+                    "the archive restores to the new master's version")
+            require(restored.checksum() == live_doc["checksum"],
+                    "the archive restores to the new master's metadata checksum")
+            dump = io.StringIO()
+            require(metadump.dump(f"{root}/restored", out=dump) == 0, "metadump runs")
+            require("failover.bin" in dump.getvalue(), "metadump lists the file")
+            elected = {nid: n.node.elections_started - elections[nid] for nid, n in ctrls.items()}
+            stalls = sum(cs.metrics.counter("loop_stalls").total for cs in servers)
+        finally:
+            cli.Client = cli_client
+            if probe is not None:
+                await probe.close()
+            for i, cs in enumerate(servers):
+                if i not in stopped:
+                    await cs.stop()
+            for ctrl in ctrls.values():
+                await ctrl.stop()
+            if witness is not None:
+                await witness.stop()
+            if ml is not None:
+                await ml.stop()
+            for master in (shadow, active):
+                if master is not None:
+                    await master.stop()
+            conn_pool.GLOBAL_POOL.close_all()
+            logging.disable(logging.NOTSET)
+
+    require(launches["write"].get("encode", 0) >= nchunks,
+            f"encode launched {nchunks}+ times in the write")
+    for step in ("degraded_get", "degraded_cat", "degraded_client", "heal"):
+        require(launches[step].get("encode", 0) >= 1, f"encode launched in the {step}")
+    require(launches["heal"].get("block_crcs", 0) >= 1, "block_crcs launched in the heal")
+    print(f"failover: encoder {want}, launches {json.dumps(launches)}, "
+          f"lost parts {sorted(lost.values())}, checksum {live_doc['checksum']} "
+          f"at version {live_doc['version']}, metadump {dump.getvalue().count(chr(10))} lines")
+    print(json.dumps({
+        "path": "failover_ec8_4", "file_bytes": size, "chunks": nchunks,
+        "write_ms": times["write"] * 1e3, "write_MiB_s": size / 2**20 / times["write"],
+        "kill_to_promotion_ms": promoted_s * 1e3, "kill_to_first_reply_ms": reply_s * 1e3,
+        "kill_to_reregistered_ms": registered_s * 1e3,
+        "degraded_read_ms": median_ms(degraded), "degraded_read_ms_each": [
+            t * 1e3 for t in degraded],
+        "heal_ms": times["heal"] * 1e3, "rebuilt_parts": len(lost),
+        "election_timeout_s": list(FAILOVER_ELECTION_TIMEOUT),
+        "heartbeat_s": FAILOVER_HEARTBEAT, "elections_after_kill": elected,
+        "promotions": {nid: c.promotions for nid, c in ctrls.items()},
+        "demotions": {nid: c.demotions for nid, c in ctrls.items()},
+        "launches": launches, "loop_stall_warnings": stalls,
+        "phase_s": time.perf_counter() - t_phase, "encoder": want, "card": card,
+    }))
 
 
 if __name__ == "__main__":

@@ -79,10 +79,11 @@ def heat_enabled() -> bool:
 
 
 def ha_enabled() -> bool:
-    """LZ_HA (default on): quorum election among masters and automatic
-    fenced promotion. The port's master runs no election yet (its entry
-    point refuses an HA configuration); the master reads the switch for
-    the epoch fields of its links, which stay 0 without an election."""
+    """LZ_HA (default on): quorum election among masters and metaloggers
+    (metaloggers vote, never lead) and automatic fenced promotion of the
+    winning shadow. Off, the master and metalogger entry points open no
+    election socket, promotion commits no epoch bump and every epoch
+    wire field stays 0; ``promote-shadow`` still works."""
     return env_flag("LZ_HA")
 
 

@@ -267,17 +267,25 @@ class ShardedCudaChunkEncoder(CudaChunkEncoder):
         # rebuild steps (their per-device matrices and tables) by geometry
         # and erasure pattern: a replicator's steady state is a handful
         self._rec_steps: dict[tuple, object] = {}
+        # worker threads share the encoder: one lock for the step cache
+        # (each step built once) and the path counters
+        self._steps_lock = threading.Lock()
 
     def _mesh_recover_step(self, k, m, avail, wanted, block_size):
         key = (k, m, avail, wanted, block_size)
-        step = self._rec_steps.get(key)
-        if step is None:
-            step = recovery.sharded_reconstruct_with_crcs(
-                self.mesh, k, m, list(avail), list(wanted), block_size)
-            if len(self._rec_steps) > _STEP_CACHE:
-                self._rec_steps.clear()
-            self._rec_steps[key] = step
+        with self._steps_lock:
+            step = self._rec_steps.get(key)
+            if step is None:
+                step = recovery.sharded_reconstruct_with_crcs(
+                    self.mesh, k, m, list(avail), list(wanted), block_size)
+                if len(self._rec_steps) > _STEP_CACHE:
+                    self._rec_steps.clear()
+                self._rec_steps[key] = step
         return step
+
+    def _count(self, path: str) -> None:
+        with self._steps_lock:
+            self.recovers[path] += 1
 
     def recover(self, k, m, parts, wanted):
         nbytes = next((len(p) for p in parts.values() if p is not None), 0)
@@ -294,19 +302,20 @@ class ShardedCudaChunkEncoder(CudaChunkEncoder):
             or not torch_ec.is_block_size(block)
             or any(p is None for p in parts.values())
         ):
-            self.recovers["card"] += 1
+            self._count("card")
             return super().recover(k, m, parts, wanted)
         wanted = list(wanted)
         step = self._mesh_recover_step(k, m, tuple(sorted(parts)), tuple(wanted), block)
         rec, _crcs = step([np.asarray(parts[i]) for i in step.used])
         out = rec.gather().reshape(len(wanted), -1)
-        self.recovers["mesh"] += 1
+        self._count("mesh")
         return {w: out[i] for i, w in enumerate(wanted)}
 
 
 # One encoder per (name, device), as the JAX package keeps one per name:
 # an encoder's device matrices, and so the kernels' tables, outlive a call.
 _ENCODERS: dict[tuple, ChunkEncoder] = {}
+_ENCODERS_LOCK = threading.Lock()  # callers on worker threads get one object
 
 
 def get_encoder(name: str | None = None, device=None) -> ChunkEncoder:
@@ -328,10 +337,11 @@ def get_encoder(name: str | None = None, device=None) -> ChunkEncoder:
     if device is not None and name != "cuda":
         raise ValueError(f"encoder backend {name!r} takes no device, got {device!r}")
     key = (name, cuda_ec.resolve_device(device) if name == "cuda" else None)
-    if key not in _ENCODERS:
-        _ENCODERS[key] = (
-            CudaChunkEncoder(key[1]) if name == "cuda"
-            else CpuChunkEncoder() if name == "cpu"
-            else ShardedCudaChunkEncoder()
-        )
-    return _ENCODERS[key]
+    with _ENCODERS_LOCK:
+        if key not in _ENCODERS:
+            _ENCODERS[key] = (
+                CudaChunkEncoder(key[1]) if name == "cuda"
+                else CpuChunkEncoder() if name == "cpu"
+                else ShardedCudaChunkEncoder()
+            )
+        return _ENCODERS[key]

@@ -9,24 +9,20 @@ admission rates, data-plane budgets — doc/operations.md QoS runbook),
 LOG_LEVEL,
 HEALTH_INTERVAL, IMAGE_INTERVAL, LIFECYCLE_INTERVAL (s3 lifecycle
 tiering scan period), PERSONALITY (master|shadow),
-ACTIVE_MASTER (host:port, required for shadow).
-
-The port has no quorum election yet: a configuration that names one
-(any of HA_KEYS) is refused at start, and failover stays manual
-(``promote-shadow`` over the admin port).
+ACTIVE_MASTER (host:port, required for shadow), and optional election:
+ELECTION_ID, ELECTION_LISTEN (host:port), ELECTION_PEERS
+(id=host:port,id=host:port,...), PROMOTE_EXEC / DEMOTE_EXEC (shell
+commands run on leadership transitions with LIZ_NODE_ID/LIZ_ROLE set —
+the floating-IP helper glue).
 """
 
 import asyncio
 import sys
 
+from lizardfs_tpu_torch import constants
 from lizardfs_tpu_torch.master.server import MasterServer
 from lizardfs_tpu_torch.runtime.config import Config
 from lizardfs_tpu_torch.runtime.daemon import setup_logging
-
-
-# The keys of the JAX package's election configuration.
-HA_KEYS = ("ELECTION_ID", "ELECTION_LISTEN", "ELECTION_PEERS", "MASTER_PEERS",
-           "PROMOTE_EXEC", "DEMOTE_EXEC")
 
 
 def _hostport(s: str) -> tuple[str, int]:
@@ -35,12 +31,6 @@ def _hostport(s: str) -> tuple[str, int]:
 
 
 async def _run(cfg: Config) -> None:
-    named = [key for key in HA_KEYS if cfg.get_str(key, "")]
-    if named:
-        raise SystemExit(
-            f"{', '.join(named)}: the port's master runs no quorum election; "
-            "leave the election keys out (failover is manual, promote-shadow)"
-        )
     personality = cfg.get_str("PERSONALITY", "master")
     active = cfg.get_str("ACTIVE_MASTER", "")
     config_paths = {
@@ -71,7 +61,54 @@ async def _run(cfg: Config) -> None:
     # initial load runs the SAME code as SIGHUP reload, strictly: boot
     # fails loudly on a bad file instead of serving half a config
     server.reload(strict=True)
-    await server.run_forever()
+    controller = None
+    # LZ_HA kill switch: off = no election socket, no vote traffic, no
+    # automatic promotion — the daemon behaves exactly like the manual-
+    # promotion tree even with ELECTION_* configured (promote-shadow
+    # over the admin port still works)
+    if cfg.get_str("ELECTION_ID", "") and constants.ha_enabled():
+        from lizardfs_tpu_torch.ha.controller import FailoverController
+
+        peers = {}
+        for item in cfg.get_str("ELECTION_PEERS", "").split(","):
+            if item.strip():
+                pid, _, addr = item.strip().partition("=")
+                peers[pid] = _hostport(addr)
+        # MASTER_PEERS (id=host:port,...): each node's master SERVICE
+        # address, so followers can re-point their changelog stream at
+        # whichever node currently leads (no floating IP required)
+        service_addrs = {}
+        for item in cfg.get_str("MASTER_PEERS", "").split(","):
+            if item.strip():
+                pid, _, addr = item.strip().partition("=")
+                service_addrs[pid] = _hostport(addr)
+        controller = FailoverController(
+            server,
+            cfg.get_str("ELECTION_ID"),
+            _hostport(cfg.get_str("ELECTION_LISTEN", "127.0.0.1:0")),
+            peers,
+            promote_exec=cfg.get_str("PROMOTE_EXEC", "") or None,
+            demote_exec=cfg.get_str("DEMOTE_EXEC", "") or None,
+            service_addrs=service_addrs,
+            # RTO tuning knobs (doc/operations.md failover runbook):
+            # detect time is bounded by the randomized election timeout,
+            # steady-state traffic by the heartbeat interval
+            election_timeout=(
+                cfg.get_float("ELECTION_TIMEOUT_MIN", 0.15, min_value=0.01),
+                cfg.get_float("ELECTION_TIMEOUT_MAX", 0.30, min_value=0.02),
+            ),
+            heartbeat_interval=cfg.get_float(
+                "HEARTBEAT_INTERVAL", 0.05, min_value=0.005
+            ),
+        )
+        server.ha_controller = controller
+    if controller is not None:
+        await controller.start()
+    try:
+        await server.run_forever()
+    finally:
+        if controller is not None:
+            await controller.stop()
 
 
 def main() -> None:

@@ -137,3 +137,10 @@ class RpcConnection:
             task.cancel()
         await _retry.close_writer(self.writer, swallow_cancel=True)
         self._closed.set()
+        # a pump cancelled before its first step never runs its finally:
+        # fail the calls it would have failed, or a call sent just before
+        # the close waits out its whole timeout
+        for fut in self._pending.values():
+            if not fut.done():
+                fut.set_exception(ConnectionError("connection lost"))
+        self._pending.clear()

@@ -1,7 +1,9 @@
 """The import boundary of the PyTorch port: it imports neither JAX nor any
 module of the JAX package (``lizardfs_tpu``), and nor does chip_smoke.py.
 The port's master imports no torch either, so that a standalone master
-forks its metadata dumps as the JAX package's does.
+forks its metadata dumps as the JAX package's does, and nor do the
+election, the metalogger and the operator tools that run beside it; the
+file CLI (``tools/cli.py``) alone reaches the card.
 
 The check runs in a subprocess, because this test process has JAX
 loaded already (tests/conftest.py), plus an AST scan of the sources.
@@ -76,8 +78,15 @@ def test_sources_import_no_jax_and_no_reference_module(path):
 
 @pytest.mark.parametrize("module", [
     "lizardfs_tpu_torch.master.server", "lizardfs_tpu_torch.master.__main__",
+    "lizardfs_tpu_torch.ha.election", "lizardfs_tpu_torch.ha.controller",
+    "lizardfs_tpu_torch.metalogger.server", "lizardfs_tpu_torch.metalogger.__main__",
+    "lizardfs_tpu_torch.runtime.detsched", "lizardfs_tpu_torch.tools.metadump",
+    "lizardfs_tpu_torch.tools.metarestore", "lizardfs_tpu_torch.tools.admin_cli",
+    "lizardfs_tpu_torch.tools.webui",
 ])
 def test_the_master_loads_no_torch(module):
+    """The master, and what runs beside it (the election, the metalogger,
+    the deterministic loop and the operator tools but the file CLI)."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"

@@ -4,8 +4,8 @@
   originals with the package name changed in imports, line for line;
   a line may differ only where the original cites one of the JAX
   package's own change requests by number and the copy does not. The
-  entry point is the one exception: it refuses an election
-  configuration, which the port does not run yet.
+  entry points (the master's and the metalogger's) build the same
+  election wiring from the same configuration as the JAX package's.
 * State: the same seeded sequence of operations on the JAX and the port
   objects gives equal results and equal state, value for value: the
   metadata store (its ``FsTree``, ``ChunkRegistry``, ``QuotaDatabase``,
@@ -18,17 +18,20 @@ Every case is in process and exact; the master clusters run in
 ``tests/test_torch_client.py``.
 """
 
+import asyncio
 import base64
 import difflib
 import importlib
 import random
 import re
+import signal
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 
-from lizardfs_tpu_torch.master import __main__ as master_main
+from lizardfs_tpu_torch.constants import OFF_SPELLINGS
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGES = {"jax": "lizardfs_tpu", "port": "lizardfs_tpu_torch"}
@@ -36,7 +39,8 @@ MASTER_COPIES = [
     "master/__init__.py", "master/acl.py", "master/richacl.py", "master/locks.py",
     "master/quotas.py", "master/exports.py", "master/assignment.py", "master/tasks.py",
     "master/changelog.py", "master/heat.py", "master/fs.py", "master/chunks.py",
-    "master/rebuild.py", "master/metadata.py", "master/server.py", "utils/io_limits.py",
+    "master/rebuild.py", "master/metadata.py", "master/server.py", "master/__main__.py",
+    "utils/io_limits.py",
 ]
 # A citation of one of the JAX package's own change requests, which the
 # copies reword away.
@@ -91,14 +95,145 @@ def test_copied_module_matches_reference(rel):
     assert_copy(rel)
 
 
-@pytest.mark.parametrize("key", master_main.HA_KEYS)
-def test_entry_point_refuses_an_election(tmp_path, monkeypatch, key):
-    cfg = tmp_path / "master.cfg"
-    cfg.write_text(f"DATA_PATH = {tmp_path / 'data'}\nLISTEN_PORT = 0\n{key} = a=127.0.0.1:1\n")
-    monkeypatch.setattr("sys.argv", ["master", str(cfg)])
-    with pytest.raises(SystemExit, match=f"{key}: the port's master runs no quorum election"):
-        master_main.main()
-    assert not (tmp_path / "data").exists(), "refused before the server was built"
+# --- the entry points: the election wiring a configuration asks for ------------------
+
+
+ELECTION_KEYS = {  # each beside ELECTION_ID = a
+    "ELECTION_ID": None,
+    "ELECTION_LISTEN": "127.0.0.1:0",
+    "ELECTION_PEERS": "b=127.0.0.1:9,w=127.0.0.1:9",
+    "MASTER_PEERS": "a=127.0.0.1:9421,b=127.0.0.1:9422",
+    "PROMOTE_EXEC": "true",
+    "DEMOTE_EXEC": "false",
+    "ELECTION_TIMEOUT_MIN": "0.4",
+    "ELECTION_TIMEOUT_MAX": "0.9",
+    "HEARTBEAT_INTERVAL": "0.2",
+}
+
+
+def _election(node) -> dict | None:
+    """What an entry point wired into one ``ElectionNode`` (None: no node)."""
+    if node is None:
+        return None
+    return {"id": node.node_id, "peers": node.peers, "timeout": node.election_timeout,
+            "heartbeat": node.heartbeat_interval, "can_lead": node.can_lead,
+            "bound": node.listen[1] != 0}
+
+
+def _run_entry(pkg: str, daemon: str, values: dict, monkeypatch, sockets: int) -> dict:
+    """Run ``pkg``'s ``daemon`` entry point (``master`` or ``metalogger``)
+    on a configuration until it is up with ``sockets`` election sockets
+    open, then stop it as SIGTERM does;
+    returns the election wiring it built and the election sockets it
+    opened."""
+    entry = mod(pkg, f"{daemon}.__main__")
+    election = mod(pkg, "ha.election")
+    built, started = [], []
+    cls = entry.MasterServer if daemon == "master" else entry.Metalogger
+
+    class Recording(cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            built.append(self)
+
+    start = election.ElectionNode.start
+
+    async def recording_start(node):
+        started.append(node)
+        await start(node)
+
+    monkeypatch.setattr(entry, cls.__name__, Recording)
+    monkeypatch.setattr(election.ElectionNode, "start", recording_start)
+    monkeypatch.setattr(mod(pkg, "runtime.faults"), "_PROCESS_ROLE",
+                        mod(pkg, "runtime.faults")._PROCESS_ROLE)
+    cfg = mod(pkg, "runtime.config").Config.from_dict(values)
+
+    async def go():
+        loop = asyncio.get_running_loop()
+        handlers = {}
+        monkeypatch.setattr(loop, "add_signal_handler",
+                            lambda sig, cb, *args: handlers.__setitem__(sig, cb))
+        task = asyncio.ensure_future(entry._run(cfg))
+        deadline = time.monotonic() + 10.0
+        up = (lambda: built and built[0].port) if daemon == "master" else (lambda: built)
+        while not (up() and len(handlers) >= 2 and len(started) >= sockets):
+            assert not task.done(), task.exception()
+            assert time.monotonic() < deadline, "the entry point came up"
+            await asyncio.sleep(0.01)
+        controller = getattr(built[0], "ha_controller", None)
+        out = {"sockets": [_election(n) for n in started]}
+        if daemon == "master":
+            out["controller"] = None if controller is None else {
+                "node": _election(controller.node), "service": controller.service_addrs,
+                "promote": controller.promote_exec, "demote": controller.demote_exec,
+            }
+        handlers[signal.SIGTERM]()
+        await asyncio.wait_for(task, 10.0)
+        out["closed"] = all(n._transport.is_closing() for n in started)
+        return out
+
+    return asyncio.run(go())
+
+
+def _entry_cfg(tmp_path, pkg, **keys) -> dict:
+    return {"DATA_PATH": str(tmp_path / pkg), "LISTEN_PORT": "0", **keys}
+
+
+@pytest.mark.parametrize("key", sorted(ELECTION_KEYS))
+def test_entry_point_starts_an_election(tmp_path, monkeypatch, key):
+    """With ELECTION_ID set, each election key reaches a
+    ``FailoverController`` whose node opens its socket and closes it on
+    stop, wired as the JAX package's entry point wires it."""
+    monkeypatch.delenv("LZ_HA", raising=False)
+    keys = {"ELECTION_ID": "a", **({key: ELECTION_KEYS[key]} if ELECTION_KEYS[key] else {})}
+    port = _run_entry("port", "master", _entry_cfg(tmp_path, "port", **keys), monkeypatch, 1)
+    ref = _run_entry("jax", "master", _entry_cfg(tmp_path, "jax", **keys), monkeypatch, 1)
+    assert port == ref
+    assert port["controller"]["node"]["id"] == "a" and port["closed"]
+    assert port["sockets"] == [port["controller"]["node"]]
+    if key == "MASTER_PEERS":
+        assert port["controller"]["service"] == {"a": ("127.0.0.1", 9421),
+                                                 "b": ("127.0.0.1", 9422)}
+    if key == "ELECTION_TIMEOUT_MIN":
+        assert port["controller"]["node"]["timeout"] == (0.4, 0.3)
+    if key == "PROMOTE_EXEC":
+        assert port["controller"]["promote"] == "true"
+
+
+@pytest.mark.parametrize("spelling", list(OFF_SPELLINGS) + ["no-id"])
+def test_entry_point_without_ha_runs_manual_promotion(tmp_path, monkeypatch, spelling):
+    """``LZ_HA`` off in each of its spellings (election keys set), or no
+    ELECTION_ID: the manual-promotion master, with no election socket."""
+    keys = {k: v for k, v in ELECTION_KEYS.items() if v}
+    if spelling == "no-id":
+        monkeypatch.delenv("LZ_HA", raising=False)
+    else:
+        monkeypatch.setenv("LZ_HA", spelling)
+        keys["ELECTION_ID"] = "a"
+    port = _run_entry("port", "master", _entry_cfg(tmp_path, "port", **keys), monkeypatch, 0)
+    ref = _run_entry("jax", "master", _entry_cfg(tmp_path, "jax", **keys), monkeypatch, 0)
+    assert port == ref == {"sockets": [], "controller": None, "closed": True}
+
+
+@pytest.mark.parametrize("election", [True, False])
+def test_metalogger_entry_point(tmp_path, monkeypatch, election):
+    """The metalogger joins the quorum as a vote-only node exactly when
+    ELECTION_ID is set, as the JAX package's does."""
+    monkeypatch.delenv("LZ_HA", raising=False)
+    keys = {"MASTER_ADDRS": "127.0.0.1:9", "ELECTION_PEERS": "a=127.0.0.1:9,b=127.0.0.1:9",
+            "MASTER_PEERS": "a=127.0.0.1:9421"}
+    if election:
+        keys["ELECTION_ID"] = "w"
+    port = _run_entry("port", "metalogger", _entry_cfg(tmp_path, "port", **keys), monkeypatch,
+                      int(election))
+    ref = _run_entry("jax", "metalogger", _entry_cfg(tmp_path, "jax", **keys), monkeypatch,
+                     int(election))
+    assert port == ref
+    if election:
+        assert [n["id"] for n in port["sockets"]] == ["w"]
+        assert not port["sockets"][0]["can_lead"] and port["sockets"][0]["bound"]
+    else:
+        assert port["sockets"] == []
 
 
 # --- the metadata store, driven by seeded changelog ops ---------------------------

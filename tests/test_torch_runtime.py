@@ -37,10 +37,28 @@ COPIES = [
 CHANGE_REFERENCE = re.compile(r" \(PR \d+\)|PR-\d+ ")
 
 
+# The one departure: the port's ``RpcConnection.close`` ends by failing
+# the calls still pending, which the JAX package's leaves to a pump that
+# may never have run
+# (tests/test_torch_ha.py::test_close_fails_a_call_whose_pump_never_ran).
+DEPARTS = {"runtime/rpc.py": """        # a pump cancelled before its first step never runs its finally:
+        # fail the calls it would have failed, or a call sent just before
+        # the close waits out its whole timeout
+        for fut in self._pending.values():
+            if not fut.done():
+                fut.set_exception(ConnectionError("connection lost"))
+        self._pending.clear()
+"""}
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_matches_reference(rel):
     want = (ROOT / "lizardfs_tpu" / rel).read_text().replace("lizardfs_tpu.", "lizardfs_tpu_torch.")
-    assert (ROOT / "lizardfs_tpu_torch" / rel).read_text() == CHANGE_REFERENCE.sub("", want)
+    got = (ROOT / "lizardfs_tpu_torch" / rel).read_text()
+    if rel in DEPARTS:  # lines appended at the end of the file
+        assert got.endswith(DEPARTS[rel]), rel
+        got = got[: -len(DEPARTS[rel])]
+    assert got == CHANGE_REFERENCE.sub("", want)
 
 
 class FakeClock:

@@ -9,6 +9,9 @@ outputs and the golden codec.
 """
 
 import re
+import sys
+import threading
+import time
 
 import jax
 import numpy as np
@@ -262,3 +265,87 @@ def test_env_flag_matches_reference(monkeypatch, value, default):
     got = constants.env_flag("LZ_SHARDED_RECOVERY", default)
     assert got == ref_constants.env_flag("LZ_SHARDED_RECOVERY", default)
     assert recovery.enabled() == ref_recovery.enabled()
+
+
+class SlowDict(dict):
+    """A dict that yields the interpreter inside the steps a thread
+    takes to check, read or store an entry, where an unguarded
+    check-then-set or read-modify-write lets another thread in."""
+
+    def __contains__(self, key):
+        time.sleep(0.0005)
+        return super().__contains__(key)
+
+    def get(self, key, default=None):
+        value = super().get(key, default)
+        time.sleep(0.0005)
+        return value
+
+    def __setitem__(self, key, value):
+        time.sleep(0.0005)
+        super().__setitem__(key, value)
+
+
+def test_sharded_encoder_under_threads(monkeypatch):
+    """Every port client encodes and recovers from worker threads, and
+    with two or more cards on one ``ShardedCudaChunkEncoder``: eight
+    threads of ``recover`` (on the mesh and on one card) and ``encode``
+    over a mesh of four, beside concurrent ``get_encoder("cpu")`` calls,
+    get the golden bytes, count every recover once, build each rebuild
+    step once, and share one registry object."""
+    enc = ShardedCudaChunkEncoder(_port_mesh(4))
+    enc.recovers = SlowDict(enc.recovers)
+    enc._rec_steps = SlowDict()
+    monkeypatch.setattr(port_encoder, "_ENCODERS", SlowDict())
+    builds = []
+    build = recovery.sharded_reconstruct_with_crcs
+
+    def counted_build(mesh, k, m, avail, wanted, block_size):
+        builds.append((k, m, tuple(avail), tuple(wanted), block_size))
+        return build(mesh, k, m, avail, wanted, block_size)
+
+    monkeypatch.setattr(recovery, "sharded_reconstruct_with_crcs", counted_build)
+    # (k, m, bytes a part, lost): the mesh path, then the card path (k
+    # does not divide the mesh, or the bytes do not)
+    cases = [(8, 4, 4 * BS, [3]), (4, 2, 8 * BS, [0, 5]), (3, 2, 4 * BS, [1]),
+             (8, 4, 4 * BS + 64, [2])]
+    golden = {}
+    for i, (k, m, nbytes, _) in enumerate(cases):
+        data = np.random.default_rng(i).integers(0, 256, (k, nbytes), dtype=np.uint8)
+        golden[i] = list(data) + cpu.encode(k, m, list(data))
+    errors, registry = [], []
+    start = threading.Barrier(8)
+
+    def work(seed):
+        start.wait()
+        for j in range(6):
+            i = (seed + j) % len(cases)
+            k, m, _, lost = cases[i]
+            parts = golden[i]
+            try:
+                registry.append(get_encoder("cpu"))
+                for a, b in zip(enc.encode(k, m, parts[:k]), parts[k:]):
+                    np.testing.assert_array_equal(a, b)
+                avail = {p: parts[p] for p in range(k + m) if p not in lost}
+                got = enc.recover(k, m, avail, lost)
+                for p in lost:
+                    np.testing.assert_array_equal(got[p], parts[p])
+            except Exception as e:  # collected: a thread's failure fails the test
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(seed,)) for seed in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert enc.recovers["mesh"] + enc.recovers["card"] == 8 * 6
+    assert enc.recovers["mesh"] > 0 and enc.recovers["card"] > 0
+    assert sorted(builds) == sorted(set(builds)) and len(builds) == 2, builds
+    assert len({id(e) for e in registry}) == 1 and len(registry) == 8 * 6
