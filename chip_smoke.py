@@ -7,7 +7,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    exits non-zero without a CUDA device;
 2. builds the kernels from ``lizardfs_tpu_torch/ops/csrc/``; the
    build passes ``nvcc -Xptxas -v``'s registers, shared memory and
-   spills of each kernel through to standard error;
+   spills of each kernel through to standard error. Beside it, on a
+   thread, g++ builds the native data plane's two libraries from
+   ``native/`` (``core/native.py``: the listener, exchanges and ring,
+   and the C client); a failed build of either fails the phase;
 3. holds each of the four kernels byte for byte against its plain
    PyTorch version on the card, and one shape of each against the numpy
    golden path, at the ec(8,4) 64 MiB chunk shapes and at the other
@@ -40,7 +43,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    encoder the ladder chose, how many kernel calls got rows off a
    16-byte boundary, and the host-clock split of ``rebuild_part``
    (median of 5);
-7. runs the chunkserver on the wire at ec(8,4): thirteen port
+7. runs the chunkserver on the wire at ec(8,4), on the asyncio data
+   plane (the client side's native exchanges set aside, the servers
+   built with ``native_data_plane`` false): thirteen port
    ``ChunkServer``s on ephemeral localhost ports, each with its own data
    folder and the card's encoder; the twelve parts of a 64 MiB chunk
    (less 3 blocks and 1000 bytes) encoded by ``encode_with_checksums``
@@ -59,7 +64,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    the wire write, the whole read, the degraded read and
    ``_cmd_replicate`` with its split (``plan_rebuild``, ``execute_plan``
    and its ``recover``, ``write_rebuilt`` and its ``checksum``);
-8. runs a whole cluster as a user does, at the shipped goal: one port
+8. runs a whole cluster as a user does, at the shipped goal, twice: on
+   the asyncio data plane (once) and on the native plane, the reference's
+   default (three times: the C++ listener, the client's native exchanges,
+   its segmented stripe pipeline and the shared-memory ring); one port
    ``MasterServer`` (``SHIPPED_GOALS``), thirteen port ``ChunkServer``s
    on the card's encoder and one port ``Client`` on ``get_encoder(None)``
    (``cuda`` on one card), in this process on localhost ports; a file of
@@ -78,8 +86,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    time the master took to see the server go and to heal, with the
    rebuilds' split summed over them; the kernels' and the copies' device
    time (``torch.profiler``) in one more write and in the heal, as a
-   share of each; and two ``profile`` lines of the sampler;
-9. runs the front doors over a cluster built as in 8: the file (a
+   share of each, with the count and device time of that write's
+   device-to-host copies (the encoder's parity rows); and two
+   ``profile`` lines of the sampler. Each line carries its ``plane``. On
+   the native plane the listeners' folded gauges
+   (``native_bytes_written``, ``native_shm_desc_ops``) must be above 0
+   after the write, and ``encode`` must launch at least once for each
+   segment of each full chunk; the two planes' part files (CRC slots and
+   bytes) must be equal;
+9. runs the front doors over a cluster built as in 8, on each data
+   plane as in 8 (the asyncio run once): the file (a
    64 MiB chunk, 1 MiB and 4242 bytes) written three times and read
    three times through each of a FUSE mount's ctypes callbacks
    (``LizardFuse``, no kernel mount; ``create``/``open``, ``write`` in
@@ -100,8 +116,13 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    write, with MiB/s, the read and the degraded read; the kernels' and
    copies' device time in one more write, from ``torch.profiler``, as a
    share of it; the launches) and a ``frontdoor_tape_recall_ec8_4`` line
-   (the demote, the recalling GET, the heal);
-10. runs failover on the card: a port master, its shadow and a port
+   (the demote, the recalling GET, the heal). On the native plane the
+   mount's read pool (the C client) also reads a std file's whole 64 MiB
+   chunk through the listeners, every piece served by the pool, and the
+   degraded FUSE reads must fall back from the pool to the planner path,
+   which launches ``encode``;
+10. runs failover on the card, on the asyncio data plane: a port
+   master, its shadow and a port
    ``Metalogger`` in a three-node quorum wired as the entry points wire
    it (a ``FailoverController`` on each master, a vote-only
    ``ElectionNode`` on the metalogger; election timeout
@@ -139,6 +160,7 @@ Any failed phase raises, so the script exits non-zero.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import hashlib
 import json
@@ -180,9 +202,11 @@ SHORT_CHUNK = CHUNK - 3 * BS - 1000  # trailing parts short: zero-padded on read
 LOST = 3  # the part the rebuild phase loses
 RMW_BLOCKS = (5, 37)  # first block and block count of the degraded read
 CLUSTER_BYTES = 2 * CHUNK + 2**20 + 4242  # the cluster phase's file: two chunks and a tail
-CLUSTER_REPS = 3  # timed writes and reads of the cluster phase
 FRONTDOOR_BYTES = CHUNK + 2**20 + 4242  # each door's file: a chunk and a tail
-FRONTDOOR_REPS = 3  # timed writes and reads of each door
+# the data planes the cluster and door phases run on, with their timed
+# writes and reads: the asyncio plane once, the native plane (the
+# reference's default) three times
+PLANES = (("asyncio", 1), ("native", 3))
 FRONTDOOR_PIECE = 2**20  # FUSE and NFS write and read size (the gateway's wtmax)
 FAILOVER_BYTES = FRONTDOOR_BYTES  # the failover phase's file
 # the failover phase's election timing: wider than the entry point's
@@ -259,9 +283,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # -- phase 1: build ---------------------------------------------------
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"build: {time.perf_counter() - t0:.3f} s ({_build.library_path().name})")
+    # the native data plane's two libraries (g++) build beside the kernels
+    # (nvcc); a failed build of either fails the phase with its message
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(build_native)
+        t0 = time.perf_counter()
+        _build.library()
+        print(f"build: {time.perf_counter() - t0:.3f} s ({_build.library_path().name})")
+        print(f"native build: {json.dumps(native_build.result())}")
     for kernel, pattern in SASS.items():
         print(json.dumps({"sass": kernel, **(sass_mix(str(_build.library_path()), pattern) or {})}))
 
@@ -470,16 +499,27 @@ def main() -> int:
     rebuild_path(get_encoder("cuda"), card)
 
     # -- phase 5b: the chunkserver on the wire -----------------------------
-    wire_path(get_encoder("cuda"), card)
+    with data_plane("asyncio"):
+        wire_path(get_encoder("cuda"), card)
 
-    # -- phase 5c: a whole cluster: master, chunkservers, client ----------
-    cluster_path(card)
+    # -- phase 5c: a whole cluster: master, chunkservers, client, on each
+    # data plane ----------------------------------------------------------
+    cluster_lines = {}
+    for plane, reps in PLANES:
+        with data_plane(plane):
+            cluster_lines[plane] = cluster_path(card, plane, reps)
+    require(cluster_lines["native"]["parts_sha256"] == cluster_lines["asyncio"]["parts_sha256"],
+            "the native plane's part files equal the asyncio plane's")
 
-    # -- phase 5d: the front doors: FUSE, NFSv3, S3 and the tape tier ------
-    frontdoor_path(card)
+    # -- phase 5d: the front doors: FUSE, NFSv3, S3 and the tape tier, on
+    # each data plane -----------------------------------------------------
+    for plane, reps in PLANES:
+        with data_plane(plane):
+            frontdoor_path(card, plane, reps)
 
     # -- phase 5e: failover: the quorum, the promoted shadow, the tools ----
-    failover_path(card)
+    with data_plane("asyncio"):
+        failover_path(card)
 
     # -- phase 6: timing -------------------------------------------------
     def window_ms(fn, iters):
@@ -635,6 +675,57 @@ def wall_ms(fn, reps=5) -> float:
         sync_all()
         times.append((time.perf_counter() - t) * 1e3)
     return sorted(times)[reps // 2]
+
+
+def build_native() -> dict:
+    """Builds the native data plane's two libraries (``core/native.py``:
+    g++ from ``native/``); a failed build fails with a message that says
+    so. Returns each library's file name and build seconds."""
+    from lizardfs_tpu_torch.core import native
+
+    out = {}
+    try:
+        for name in (native.DATA_PLANE, native.CLIENT):
+            t = time.perf_counter()
+            out[name] = {"path": native.build(name).name, "s": time.perf_counter() - t}
+    except RuntimeError as exc:
+        raise RuntimeError(f"the native data plane did not build: {exc}") from exc
+    return out
+
+
+@contextlib.contextmanager
+def data_plane(plane: str):
+    """``asyncio``: the client side's native exchanges (``native_io``) and
+    the FUSE read pool (``native_client``) set aside, as the CPU tests set
+    them aside; the phase builds its servers with ``native_data_plane``
+    false. ``native``: the reference's defaults, the listener, the
+    exchanges, the ring and the read pool on. The blocking data sockets
+    the phase pooled are closed on the way out."""
+    from lizardfs_tpu_torch.client import native_client
+    from lizardfs_tpu_torch.core import native_io
+
+    require(plane in ("asyncio", "native"), f"a data plane: {plane!r}")
+    saved = native_io._lib, native_client._lib
+    if plane == "asyncio":
+        native_io._lib = native_client._lib = None
+    try:
+        yield
+    finally:
+        native_io._lib, native_client._lib = saved
+        for pool in (native_io.POOL, native_io.RING_POOL):
+            with pool._lock:
+                idle = [sock for bucket in pool._idle.values() for sock in bucket]
+                pool._idle.clear()
+            for sock in idle:
+                pool.discard(sock)
+
+
+def native_gauges(servers) -> dict:
+    """The listeners' counters folded into each live server's gauges (the
+    heartbeat's fold, run once here), summed over the servers."""
+    keys = ("native_bytes_written", "native_bytes_read", "native_shm_desc_ops",
+            "native_shm_segments_mapped")
+    return {k: sum(cs.metrics.gauge(k).value for cs in servers) for k in keys}
 
 
 def multi_device_path(chunk: np.ndarray, st) -> dict:
@@ -1126,7 +1217,8 @@ async def _wire_path(configured, card: str) -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_wire_") as root:
         try:
             for i in range(K + M + 1):
-                cs = ChunkServer(f"{root}/cs{i}", master_addr=None, encoder=configured)
+                cs = ChunkServer(f"{root}/cs{i}", master_addr=None, encoder=configured,
+                                 native_data_plane=False)
                 await cs.start()
                 servers.append(cs)
             addr = {p: ("127.0.0.1", servers[p].port) for p in range(K + M)}
@@ -1292,7 +1384,7 @@ def kernel_device_ms(prof) -> dict:
     """Device time a ``torch.profiler`` run recorded, in ms: the port's
     kernels (``..._kernel``, in its anonymous namespace), the copies
     between host and card, and each event's own time by name."""
-    out = {"kernels_ms": 0.0, "copies_ms": 0.0, "by_name": {}}
+    out = {"kernels_ms": 0.0, "copies_ms": 0.0, "by_name": {}, "copies": {}}
     for e in prof.key_averages():
         ms = e.self_device_time_total / 1e3
         if not ms:
@@ -1304,30 +1396,37 @@ def kernel_device_ms(prof) -> dict:
             out["kernels_ms"] += ms
         elif e.key.startswith("Memcpy"):
             out["copies_ms"] += ms
+            # by kind ("Memcpy DtoH (Device -> Pageable)"): the count of
+            # copies and their device time
+            kind = out["copies"].setdefault(e.key, {"count": 0, "ms": 0.0})
+            kind["count"] += e.count
+            kind["ms"] += ms
     return out
 
 
-def cluster_path(card: str) -> None:
+def cluster_path(card: str, plane: str, reps: int) -> dict:
     """The port as a user runs it, at the shipped ec(8,4) goal: one
     ``MasterServer`` (goal ``SHIPPED_GOALS``), thirteen ``ChunkServer``s
     on the card's encoder and one ``Client`` on ``get_encoder(None)``, in
-    this process on localhost ports; a file of ``CLUSTER_BYTES`` written
+    this process on localhost ports, on the data plane named (run it
+    inside ``data_plane(plane)``); a file of ``CLUSTER_BYTES`` written
     through the master's grants, read whole, read degraded with a holder
     of a data part of chunk 0 stopped, and its lost parts rebuilt by the
     master's health loop. Every server is stopped and the connection pool
-    closed on the way out."""
+    closed on the way out. Returns the ``cluster_ec8_4`` line."""
     import asyncio
 
-    asyncio.run(_cluster_path(card))
+    return asyncio.run(_cluster_path(card, plane, reps))
 
 
-async def _cluster_path(card: str) -> None:
+async def _cluster_path(card: str, plane: str, reps: int) -> dict:
     import asyncio
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from lizardfs_tpu_torch.chunkserver import replicate
+    from lizardfs_tpu_torch.chunkserver.chunk_store import SIGNATURE_SIZE
     from lizardfs_tpu_torch.chunkserver.server import ChunkServer
     from lizardfs_tpu_torch.client.client import Client
     from lizardfs_tpu_torch.core import conn_pool, geometry, read_executor
@@ -1337,7 +1436,7 @@ async def _cluster_path(card: str) -> None:
     from lizardfs_tpu_torch.runtime import profiler
     from lizardfs_tpu_torch.utils import striping
 
-    size, reps = CLUSTER_BYTES, CLUSTER_REPS
+    size, native = CLUSTER_BYTES, plane == "native"
     goals = geometry.load_goal_config(SHIPPED_GOALS)
     st = goals[10].disk_slice().type
     rng = np.random.default_rng(SEED + 3)
@@ -1371,9 +1470,11 @@ async def _cluster_path(card: str) -> None:
             await master.start()
             for i in range(K + M + 1):
                 cs = ChunkServer(f"{root}/cs{i}", master_addr=("127.0.0.1", master.port),
-                                 encoder=get_encoder("cuda"))
+                                 encoder=get_encoder("cuda"), native_data_plane=native)
                 await cs.start()
                 servers.append(cs)
+            require(all((cs.data_server is not None) == native for cs in servers),
+                    f"the {plane} plane's listeners")
             client = Client("127.0.0.1", master.port)
             clients.append(client)
             want = "cuda" if torch.cuda.device_count() == 1 else "sharded"
@@ -1381,6 +1482,12 @@ async def _cluster_path(card: str) -> None:
             await client.connect()
             f = await client.create(1, "cluster.bin")
             await client.setgoal(f.inode, 10)
+            # the segmented stripe pipeline's segments in a full chunk
+            # (client.py: at least the write window's depth of segments)
+            depth = client.write_window.max_depth if client.write_window else 0
+            per_part = PART // BS
+            seg_blocks = -(-per_part // min(max(client.write_pipeline_segments, depth), per_part))
+            segments = -(-per_part // seg_blocks)
 
             # 1. write: the first of the timed writes is counted and
             # checked; each rewrites the whole file
@@ -1395,6 +1502,10 @@ async def _cluster_path(card: str) -> None:
                     count("write")
                     phases = {k: v for k, v in client.write_phases.snapshot().items()
                               if k != "reps"}
+                    for cs in servers:
+                        await cs._heartbeat()  # folds the listeners' counters
+                    gauges = native_gauges(servers)
+                    ops = dict(client.op_counters)
             profiles = {"write": sampled(prof)}
             node = master.meta.fs.nodes[f.inode]
             nchunks = -(-size // CHUNK)
@@ -1419,6 +1530,17 @@ async def _cluster_path(card: str) -> None:
                 times["read_ms"].append(time.perf_counter() - t)
                 require(back == data, "the whole file read back")
             count("read")
+            # every part file's CRC slots and bytes (its signature holds
+            # the version, which counts the writes)
+            parts_sha256 = {}
+            for cs in servers:
+                for cf in cs.store.all_parts():
+                    with open(cf.path, "rb") as fh:
+                        fh.seek(SIGNATURE_SIZE)
+                        digest = hashlib.sha256(fh.read()).hexdigest()
+                    key = f"{cf.chunk_id}:{cf.part_id}"
+                    require(parts_sha256.setdefault(key, digest) == digest, f"copies of {key}")
+            require(len(parts_sha256) == nchunks * (K + M), "every part file hashed")
 
             # 3. a holder of a data part of chunk 0 stops; the master's
             # rebuilds are held back (its per-chunk retry backoff) until
@@ -1523,15 +1645,28 @@ async def _cluster_path(card: str) -> None:
             for lg, level in zip(loggers, levels):
                 lg.setLevel(level)
 
-    for step, floor in (("write", nchunks), ("degraded_read", 1), ("rebuild", 1)):
-        require(launches[step]["encode"] >= floor,
-                f"encode launched {floor}+ times in the cluster's {step}")
+    full = size // CHUNK
+    # the native plane encodes each full chunk segment by segment, and a
+    # tail under the pipeline's floor at once; the asyncio plane once a
+    # chunk
+    floor = full * segments + (nchunks - full) if native else nchunks
+    for step, least in (("write", floor), ("degraded_read", 1), ("rebuild", 1)):
+        require(launches[step]["encode"] >= least,
+                f"encode launched {least}+ times in the cluster's {step} ({plane} plane)")
     require(launches["rebuild"]["block_crcs"] >= 1, "block_crcs launched in the cluster's rebuild")
+    if native:
+        require(gauges["native_bytes_written"] > 0, "the listeners took the write")
+        require(gauges["native_shm_desc_ops"] > 0, "the shared-memory ring carried the write")
+        require(ops.get("write_window", 0) >= full, "the windowed stripe pipeline wrote each chunk")
+    else:
+        require(not any(gauges.values()), "no listener on the asyncio plane")
+    copies = {k: v for k, v in write_device["copies"].items() if "DtoH" in k}
     write_ms = median_ms(times["write_ms"])
-    print(f"cluster phase: encoder {want}, launches {json.dumps(launches)}, "
+    print(f"cluster phase ({plane} plane): encoder {want}, launches {json.dumps(launches)}, "
           f"lost parts {sorted(lost.values())} of {len(lost)} chunks")
-    print(json.dumps({
-        "path": "cluster_ec8_4", "reps": reps, "file_bytes": size, "chunks": nchunks,
+    line = {
+        "path": "cluster_ec8_4", "plane": plane, "reps": reps, "file_bytes": size,
+        "chunks": nchunks, "segments_per_chunk": segments if native else 1,
         **{k: median_ms(v) for k, v in times.items()},
         "write_ms_each": [t * 1e3 for t in times["write_ms"]],
         "write_MiB_s": size / 2**20 / (write_ms / 1e3),
@@ -1544,10 +1679,17 @@ async def _cluster_path(card: str) -> None:
         "heal_device": heal_device,
         "heal_kernel_share": heal_device["kernels_ms"] / (heal_s * 1e3),
         "launches": launches, "loop_stall_warnings": stalls,
+        # the device-to-host copies of one write (the encoder's parity
+        # rows, encode_into's per-row copies): count and device time
+        "write_dtoh_copies": copies,
+        "write_dtoh_copies_ms": sum(v["ms"] for v in copies.values()),
+        "native_gauges": gauges, "client_ops": ops,
         "encoder": want, "card": card,
-    }))
+    }
+    print(json.dumps(line))
     for step, split in profiles.items():
-        print(json.dumps({"profile": f"cluster_{step}", **split}))
+        print(json.dumps({"profile": f"cluster_{plane}_{step}", **split}))
+    return {**line, "parts_sha256": parts_sha256}
 
 
 class FuseOps:
@@ -1668,7 +1810,7 @@ class FuseOps:
         self.bridge._run(drop())
 
 
-def frontdoor_path(card: str) -> None:
+def frontdoor_path(card: str, plane: str, reps: int) -> None:
     """The ways users reach the file system, at the shipped ec(8,4) goal,
     over one cluster as the cluster phase builds it: a FUSE mount's
     operations (ctypes callbacks, no kernel mount) and its master proxy,
@@ -1676,20 +1818,24 @@ def frontdoor_path(card: str) -> None:
     upload) and the tape server (a demoted object recalled by an S3
     GET); each door's file read whole, then read degraded with holders
     of data parts of every file's chunk 0 stopped, then the master's
-    heal. Every gateway, server, proxy and client is stopped and the
-    connection pool closed on the way out."""
+    heal. On the native plane (run it inside ``data_plane(plane)``) the
+    mount's read pool also reads a std file's whole chunk through the C
+    client, and its degraded reads fall back to the planner path. Every
+    gateway, server, proxy and client is stopped and the connection pool
+    closed on the way out."""
     import asyncio
 
-    asyncio.run(_frontdoor_path(card))
+    asyncio.run(_frontdoor_path(card, plane, reps))
 
 
-async def _frontdoor_path(card: str) -> None:
+async def _frontdoor_path(card: str, plane: str, reps: int) -> None:
     import asyncio
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from lizardfs_tpu_torch.chunkserver.server import ChunkServer
+    from lizardfs_tpu_torch.client import native_client
     from lizardfs_tpu_torch.client.client import Client
     from lizardfs_tpu_torch.core import conn_pool, geometry
     from lizardfs_tpu_torch.core.encoder import get_encoder
@@ -1703,7 +1849,18 @@ async def _frontdoor_path(card: str) -> None:
     from lizardfs_tpu_torch.tapeserver.server import TapeServer
 
     t_phase = time.perf_counter()
-    size, reps = FRONTDOOR_BYTES, FRONTDOOR_REPS
+    size, native = FRONTDOOR_BYTES, plane == "native"
+    # the mount's read pool: reads it served (bytes back) and handed to
+    # the planner path (None: striped, degraded or busy)
+    pool_reads = collections.Counter()
+    pool_read = native_client.NativeReadPool.read
+
+    def counted_read(self, inode, offset, size):
+        got = pool_read(self, inode, offset, size)
+        pool_reads["served" if got is not None else "fell_back"] += 1
+        return got
+
+    native_client.NativeReadPool.read = counted_read
     goals = geometry.load_goal_config(SHIPPED_GOALS)
     rng = np.random.default_rng(SEED + 4)
     data = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
@@ -1757,9 +1914,11 @@ async def _frontdoor_path(card: str) -> None:
             await master.start()
             for i in range(K + M + 1):
                 cs = ChunkServer(f"{root}/cs{i}", master_addr=("127.0.0.1", master.port),
-                                 encoder=get_encoder("cuda"))
+                                 encoder=get_encoder("cuda"), native_data_plane=native)
                 await cs.start()
                 servers.append(cs)
+            require(all((cs.data_server is not None) == native for cs in servers),
+                    f"the {plane} plane's listeners")
             admin = Client("127.0.0.1", master.port)
             await admin.connect()
             # new files take their directory's goal: the root's for FUSE
@@ -1772,6 +1931,8 @@ async def _frontdoor_path(card: str) -> None:
             # 1. FUSE: the bridge's client encodes on the bridge's own loop
             fuse = FuseOps(master.port)
             require(fuse.bridge.client.encoder.name == want, f"the mount's encoder is {want!r}")
+            require((fuse.bridge._native_reads is not None) == native,
+                    f"the mount's read pool on the {plane} plane")
             await asyncio.to_thread(fuse.start)
             cuda_ec.reset_launches()
             for rep in range(reps):
@@ -1788,6 +1949,22 @@ async def _frontdoor_path(card: str) -> None:
                 await timed("fuse_read_ms",
                             lambda: asyncio.to_thread(fuse.read, b"/fuse.bin", size), data.__eq__)
             count("fuse_read")
+            if native:
+                # a std (goal 1) file of one chunk, read whole through the
+                # mount: every piece through the read pool's C client
+                plain = await admin.create(1, "plain.bin")
+                await admin.setgoal(plain.inode, 1)
+                await admin.write_file(plain.inode, data[:CHUNK])
+                before = dict(pool_reads)
+                await timed("fuse_pool_read_ms",
+                            lambda: asyncio.to_thread(fuse.read, b"/plain.bin", CHUNK),
+                            data[:CHUNK].__eq__)
+                require(pool_reads["served"] - before.get("served", 0) == CHUNK // FRONTDOOR_PIECE
+                        and pool_reads["fell_back"] == before.get("fell_back", 0),
+                        "the read pool served every piece of the std chunk")
+                count("fuse_pool_read")
+                # its one copy may sit on a server the degraded step stops
+                await admin.unlink(1, "plain.bin")
             info = await asyncio.to_thread(fuse.special, b"/.masterinfo")
             proxy_port = int(re.search(r"masterproxy: 127\.0\.0\.1:(\d+)", info).group(1))
             tool = Client("127.0.0.1", proxy_port)
@@ -1920,11 +2097,14 @@ async def _frontdoor_path(card: str) -> None:
                 require(time.perf_counter() - t < 30.0, "the master sees the servers go")
                 await asyncio.sleep(0.005)
             cuda_ec.reset_launches()
+            fell_back = pool_reads["fell_back"]
             for _ in range(reps):
                 await asyncio.to_thread(fuse.invalidate, inodes["fuse"])
                 await timed("fuse_degraded_read_ms",
                             lambda: asyncio.to_thread(fuse.read, b"/fuse.bin", size), data.__eq__)
             count("fuse_degraded_read")
+            require(not native or pool_reads["fell_back"] > fell_back,
+                    "the degraded FUSE reads fell back from the read pool")
             for _ in range(reps):
                 nfs_gw.client.cache.invalidate(inodes["nfs"])
                 await timed("nfs_degraded_read_ms", nfs_read, data.__eq__)
@@ -1959,6 +2139,7 @@ async def _frontdoor_path(card: str) -> None:
                     await gw.stop()
             if fuse is not None:
                 await asyncio.to_thread(fuse.close)
+            native_client.NativeReadPool.read = pool_read
             if admin is not None:
                 await admin.close()
             for i, cs in enumerate(servers):
@@ -1978,13 +2159,13 @@ async def _frontdoor_path(card: str) -> None:
         require(launches[step].get("encode", 0) >= nchunks,
                 f"encode launched {nchunks}+ times in the {step}")
     require(launches["heal"].get("block_crcs", 0) >= 1, "block_crcs launched in the heal")
-    print(f"front doors: encoder {want}, launches {json.dumps(launches)}, "
-          f"{len(victims)} servers stopped")
+    print(f"front doors ({plane} plane): encoder {want}, launches {json.dumps(launches)}, "
+          f"{len(victims)} servers stopped, read pool {dict(pool_reads)}")
     for door in ("fuse", "nfs", "s3"):
         write_ms = median_ms(times[f"{door}_write_ms"])
         device = devices[door]
         line = {
-            "path": f"frontdoor_{door}_ec8_4", "reps": reps, "file_bytes": size,
+            "path": f"frontdoor_{door}_ec8_4", "plane": plane, "reps": reps, "file_bytes": size,
             "write_ms": write_ms, "write_ms_each": [t * 1e3 for t in times[f"{door}_write_ms"]],
             "write_MiB_s": size / 2**20 / (write_ms / 1e3),
             "read_ms": median_ms(times[f"{door}_read_ms"]),
@@ -1997,9 +2178,15 @@ async def _frontdoor_path(card: str) -> None:
         if door == "s3":
             line.update({k: median_ms(times[k]) for k in (
                 "s3_multipart_write_ms", "s3_multipart_read_ms", "s3_multipart_degraded_read_ms")})
+        if door == "fuse" and native:
+            line.update({"pool_read_chunk_ms": median_ms(times["fuse_pool_read_ms"]),
+                         "pool_read_chunk_MiB_s": CHUNK / 2**20 / (
+                             median_ms(times["fuse_pool_read_ms"]) / 1e3),
+                         "read_pool": dict(pool_reads)})
         print(json.dumps(line))
     print(json.dumps({
-        "path": "frontdoor_tape_recall_ec8_4", "file_bytes": size, "demote_ms": demote_s * 1e3,
+        "path": "frontdoor_tape_recall_ec8_4", "plane": plane, "file_bytes": size,
+        "demote_ms": demote_s * 1e3,
         "recall_get_ms": median_ms(times["recall_get_ms"]), "heal_ms": heal_s * 1e3,
         "servers_stopped": len(victims), "launches": {k: launches[k] for k in ("recall", "heal")},
         "phase_s": time.perf_counter() - t_phase, "encoder": want, "card": card,
@@ -2140,7 +2327,8 @@ async def _failover_path(card: str) -> None:
             await until(lambda: ctrls["b"].node.leader_id == "a", "the shadow follows", 30.0)
             for i in range(K + M + 1):
                 cs = ChunkServer(f"{root}/cs{i}", master_addr=list(addrs),
-                                 encoder=get_encoder("cuda"), heartbeat_interval=0.2)
+                                 encoder=get_encoder("cuda"), heartbeat_interval=0.2,
+                                 native_data_plane=False)
                 await cs.start()
                 servers.append(cs)
             await until(lambda: len(active.cs_links) == K + M + 1, "the servers register", 30.0)

@@ -9,9 +9,11 @@ registration loop cycles until the ACTIVE master accepts; overrides
 MASTER_HOST/PORT), LABEL, ENCODER (cuda|sharded|auto|cpu; unset is
 the card's, ``get_encoder()``, which refuses to start without one),
 HEARTBEAT_INTERVAL (seconds; also the master-reconnect cadence),
-ADMIN_PASSWORD (challenge-response auth for privileged admin commands),
-LOG_LEVEL. The port has no native data plane: every data op is served
-by the asyncio path, and NATIVE_DATA_PLANE set true is refused.
+NATIVE_DATA_PLANE (default true; false serves data ops from the
+asyncio path — the fault-injection choke points live there, and a
+server that starts with LZ_FAULTS rules armed stands the native plane
+down on its own), ADMIN_PASSWORD (challenge-response auth for
+privileged admin commands), LOG_LEVEL.
 
 Fault injection: LZ_FAULTS="seed=N; role:site[:op[:peer]] action,..."
 arms seeded fault rules at startup (runtime/faults.py; also steerable
@@ -47,11 +49,6 @@ def _folders(cfg: Config) -> list[str]:
 
 def main() -> None:
     cfg = Config(sys.argv[1] if len(sys.argv) > 1 else None)
-    if cfg.get_bool("NATIVE_DATA_PLANE", False):
-        raise SystemExit(
-            "NATIVE_DATA_PLANE: the port has no native data plane "
-            "(set it false or leave it out)"
-        )
     setup_logging("chunkserver", cfg.get_str("LOG_LEVEL", "INFO"))
     addrs_raw = cfg.get_str("MASTER_ADDRS", "")
     if addrs_raw:
@@ -82,6 +79,9 @@ def main() -> None:
         label=cfg.get_str("LABEL", "_"),
         encoder_name=cfg.get_str("ENCODER", "") or None,
         heartbeat_interval=cfg.get_float("HEARTBEAT_INTERVAL", 5.0, min_value=0.05),
+        # off routes data ops through the asyncio server, where the
+        # fault-injection choke points (disk_pread/serve_read/...) live
+        native_data_plane=cfg.get_bool("NATIVE_DATA_PLANE", True),
         admin_password=cfg.get_str("ADMIN_PASSWORD", "") or None,
     )
     asyncio.run(server.run_forever())

@@ -25,17 +25,13 @@ these differences:
   * the encoder is the card's: ``ChunkServer`` takes an ``encoder`` or
     an ``encoder_name``, and with neither resolves ``get_encoder()``,
     which raises without a card. Tests pass a CPU encoder;
-  * there is no native data plane yet: the C++ listener
-    (``native_serve``), the native read exchange (``native_io``) and the
-    shared-memory part ring are left out, and so is the
-    ``native_data_plane`` argument. Every data op is served by the
-    asyncio path below, as the JAX package's server serves them when
-    that plane is off; a ring frame (``CltocsShmInit``,
-    ``CltocsShmWritePart``) is answered as any unexpected frame is;
   * the replicator's steps are ``chunkserver/replicate.py``'s
     ``plan_rebuild`` and ``write_rebuilt`` around the network read, and
     its recovery encoder falls back to the configured one only on the
     sharded encoder's ``MeshUnavailable``.
+The native data plane (the C++ listener of ``native_serve``, the native
+read exchange and the shared-memory part ring) is the JAX package's, on
+the port's build of ``native/`` (``core/native.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +39,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import threading
 import time
 
 import numpy as np
@@ -53,7 +50,7 @@ from lizardfs_tpu_torch.chunkserver.chunk_store import (
     MultiStore,
 )
 from lizardfs_tpu_torch.constants import MFSBLOCKSIZE
-from lizardfs_tpu_torch.core import geometry
+from lizardfs_tpu_torch.core import geometry, native_io
 from lizardfs_tpu_torch.core import read_executor
 from lizardfs_tpu_torch.core.encoder import ChunkEncoder, get_encoder
 from lizardfs_tpu_torch.proto import framing
@@ -111,6 +108,7 @@ class ChunkServer(Daemon):
         encoder_name: str | None = None,
         wave_timeout: float = 0.3,
         heartbeat_interval: float = 5.0,
+        native_data_plane: bool = True,
         admin_password: str | None = None,
     ):
         super().__init__(host, port)
@@ -129,8 +127,10 @@ class ChunkServer(Daemon):
         self._damaged_seen: set[tuple[int, int]] = set()
         # per-session data-plane accounting (runtime/accounting.py):
         # reads/writes charge the originating session carried by the
-        # request's trailing session_id. The top-K summary folds into
-        # heartbeat health_json for the master's cluster-wide `top` view.
+        # request's trailing session_id; native-plane ops (no session
+        # on their frames) aggregate under the "native" row. The top-K
+        # summary folds into heartbeat health_json for the master's
+        # cluster-wide `top` view.
         self.session_ops = accounting.SessionOps(
             self.metrics, "chunkserver", max_sessions=16
         )
@@ -143,6 +143,10 @@ class ChunkServer(Daemon):
         # (total, used) from the last heartbeat's store.space() so the
         # health snapshot doesn't re-stat the folders
         self._last_space: tuple[int, int] | None = None
+        # native C++ data-plane listener (network_worker_thread analog);
+        # its port is registered with the master as data_port
+        self.data_server = None
+        self._want_native_plane = native_data_plane
         # one or more master addresses (active + shadows); registration
         # cycles until the active master accepts
         if isinstance(master_addr, tuple):
@@ -206,6 +210,10 @@ class ChunkServer(Daemon):
         self._read_delay_ms = self.tweaks.register(
             "debug_read_delay_ms", 0, on_set=self._read_delay_alias
         )
+        # sockets with a native stream in flight; shutdown() on stop so
+        # blocked serve threads see EPIPE instead of waiting out their
+        # deadline (a ThreadPoolExecutor joins its workers at exit)
+        self._native_streams: set = set()
         # passive mirror links to NON-active configured masters (shadow
         # read replicas): addr -> {"conn", "cs_id", "rereg_at"}. The
         # shadow learns this server's part locations from them (volatile
@@ -228,6 +236,39 @@ class ChunkServer(Daemon):
         await asyncio.to_thread(self.store.scan)
         for folder in self.store.damaged_folders:
             self.log.warning("data folder %s is damaged; skipping", folder)
+        if self._want_native_plane and faultsmod.ACTIVE:
+            # fault rules armed at startup: the C++ data plane cannot be
+            # instrumented from Python, so it stands down and every data
+            # byte flows through the hookable asyncio path. A documented
+            # behavior change OF THE ARMED STATE ONLY — LZ_FAULTS unset
+            # leaves the plane untouched (kill-switch discipline).
+            self.log.info(
+                "fault injection armed: native data plane standing down"
+            )
+            self._want_native_plane = False
+        if self._want_native_plane:
+            from lizardfs_tpu_torch.chunkserver import native_serve
+
+            if native_serve.available():
+                # lz_serve_start can fail transiently (fd pressure /
+                # ephemeral-port races under heavy test load): retry
+                # before falling back to the asyncio data path
+                for attempt in range(3):
+                    try:
+                        self.data_server = native_serve.DataPlaneServer(
+                            [s.folder for s in self.store.stores], self.host
+                        )
+                        self.log.info(
+                            "native data plane on %s:%d",
+                            self.host, self.data_server.port,
+                        )
+                        break
+                    except RuntimeError as e:
+                        self.log.warning(
+                            "native data plane start failed "
+                            "(attempt %d/3): %s", attempt + 1, e,
+                        )
+                        await asyncio.sleep(0.2 * (attempt + 1))
         self.add_timer(self.heartbeat_interval, self._heartbeat)
         # mirror maintenance runs on its OWN timer: a sick shadow
         # (accepted connect, hung register — the 30 s call_ok bound)
@@ -237,6 +278,12 @@ class ChunkServer(Daemon):
 
     async def start(self) -> None:
         await super().start()
+        from lizardfs_tpu_torch.core import native_io
+
+        if native_io.available():
+            # see native_io.prestart_executors: lazy thread spawn inside
+            # submit() can block the loop under GIL pressure
+            native_io.prestart_executors()
         if self.master_addr is not None:  # None = standalone (tests)
             await self._connect_master()
 
@@ -245,6 +292,9 @@ class ChunkServer(Daemon):
         # armed on this daemon's behalf — it must not outlive the
         # daemon (in-process test clusters share one process)
         faultsmod.clear(alias="debug_read_delay_ms")
+        if self.data_server is not None:
+            await asyncio.to_thread(self.data_server.stop)
+            self.data_server = None
         if self.master is not None:
             await self.master.close()
         for entry in list(self._mirror.values()):
@@ -295,7 +345,7 @@ class ChunkServer(Daemon):
             chunks=self._part_report(),
             total_space=total,
             used_space=used,
-            data_port=0,  # no native data plane: one port serves all
+            data_port=self.data_server.port if self.data_server else 0,
             # echo the highest epoch we have seen: a zombie ex-primary
             # answering this addr fences itself on it and refuses us
             epoch=self.cluster_epoch,
@@ -309,6 +359,16 @@ class ChunkServer(Daemon):
             self.cs_id, self.cluster_epoch,
         )
 
+    async def stop(self) -> None:
+        import socket as _socket
+
+        for sock in list(self._native_streams):
+            try:
+                sock.shutdown(_socket.SHUT_RDWR)
+            except OSError:
+                pass
+        await super().stop()
+
     async def _heartbeat(self) -> None:
         if self.master_addr is None:
             return
@@ -319,6 +379,46 @@ class ChunkServer(Daemon):
                 return
         total, used = self.store.space()
         self._last_space = (total, used)
+        if self.data_server is not None:
+            # fold native-plane counters into the metrics registry so
+            # charts/admin/prometheus see one consistent view — incl.
+            # the per-op disk/net time split (stats v2), which answers
+            # "where does data-plane wall time go" without tracing
+            s = self.data_server.stats()
+            self.metrics.gauge("native_bytes_read").set(float(s["bytes_read"]))
+            self.metrics.gauge("native_bytes_written").set(
+                float(s["bytes_written"])
+            )
+            for key in (
+                "read_ops", "write_ops", "read_disk_us", "read_net_us",
+                "write_disk_us", "write_net_us",
+            ):
+                if key in s:
+                    self.metrics.gauge(f"native_{key}").set(float(s[key]))
+            # shm ring plane (native/shm_ring.h proactor): how many
+            # same-host segments are mapped and how many bytes skipped
+            # the socket copy — the same view Prometheus scrapes
+            self.metrics.gauge(
+                "native_qos_deferrals",
+                help="native data-plane ops paced/deferred by the "
+                     "per-session QoS byte budgets (proactor drains + "
+                     "threaded read/write paths)",
+            ).set(float(self.data_server.qos_deferrals()))
+            shm = self.data_server.shm_stats()
+            for key, help_txt in (
+                ("segments_mapped", "shm ring segments negotiated on "
+                 "the native data plane (memfd mappings created)"),
+                ("desc_ops", "part writes landed from shm ring "
+                 "descriptors on the native data plane"),
+                ("bytes", "payload bytes landed via shm ring segments "
+                 "(no socket copy)"),
+                ("active_segments", "shm ring segments currently "
+                 "mapped (released on peer disconnect)"),
+            ):
+                self.metrics.gauge(
+                    f"native_shm_{key}", help=help_txt
+                ).set(float(shm[key]))
+            self._fold_native_trace()
         try:
             import json as _json
 
@@ -440,7 +540,9 @@ class ChunkServer(Daemon):
                     chunks=self._part_report(),
                     total_space=total,
                     used_space=used,
-                    data_port=0,
+                    data_port=(
+                        self.data_server.port if self.data_server else 0
+                    ),
                     mirror=1,
                     epoch=self.cluster_epoch,
                     timeout=30.0,
@@ -505,6 +607,56 @@ class ChunkServer(Daemon):
                 elif entry is not None and entry.get("conn") is not None:
                     await entry["conn"].close()
                 self._mirror[addr] = {"conn": None, "retry_at": now + 30.0}
+
+    def _fold_native_trace(self) -> None:
+        """Drain the native data plane's per-op trace ring into this
+        daemon's SpanRing (the C side records receive/disk/send
+        timestamps per traced op; here they become chunkserver-role
+        spans dumps/merges understand)."""
+        if self.data_server is None:
+            return
+        try:
+            ops = self.data_server.trace_ops()
+        except Exception:  # noqa: BLE001 — tracing must never hurt serving
+            self.log.debug("native trace drain failed", exc_info=True)
+            return
+        for op in ops:
+            # queue_us (lz_serve_trace3): QoS pacing wait inside the op
+            # — the attribution engine splits the span's head into a
+            # "queue" sub-interval so native backpressure is visible
+            self.trace_ring.record(
+                op["trace_id"], op["name"], op["t0"], op["t1"],
+                role="chunkserver", bytes=op["bytes"],
+                disk_us=op["disk_us"], net_us=op["net_us"],
+                queue_us=op.get("queue_us", 0),
+                chunk_id=op["chunk_id"],
+            )
+            # SLO accounting for the native plane rides the fold (the
+            # C side has no objective engine): class by op name
+            op_class = "read" if "read" in op["name"] else "write"
+            self.slo.observe(
+                op_class, max(op["t1"] - op["t0"], 0.0),
+                trace_id=op["trace_id"], name=op["name"],
+            )
+            # the C plane parses the same trailing session_id the
+            # asyncio plane reads (wire.h additive-tail convention;
+            # lz_serve_trace2) — ops from legacy peers/stale .so land
+            # on the "native" aggregate row so totals stay truthful
+            self.session_ops.record(
+                op.get("session_id") or "native", op_class,
+                max(op["t1"] - op["t0"], 0.0),
+                nbytes=op["bytes"], trace_id=op["trace_id"],
+            )
+            # native-plane ops heat the same per-chunk accumulator the
+            # asyncio handlers charge — the master's heat map must not
+            # go blind when the C++ data plane serves the bytes
+            self._heat_charge(op["chunk_id"], op["bytes"])
+
+    def trace_spans(self, trace_id: int | None = None) -> list[dict]:
+        # pull whatever the native plane recorded since the last
+        # heartbeat before dumping, so trace-dump is never stale
+        self._fold_native_trace()
+        return self.trace_ring.dump(trace_id)
 
     def _health_disk_errors(self) -> int:
         # damaged data folders + scrubber-found corrupt parts: either
@@ -584,6 +736,7 @@ class ChunkServer(Daemon):
             self._qos_raw = ""
             self._qos_tenants = {}
             self.qos_queue.configure({}, 0.0)
+            self._qos_native_apply({})
             return
         import json as _json
 
@@ -607,6 +760,21 @@ class ChunkServer(Daemon):
         self._qos_raw = text
         self._qos_tenants = tenants
         self.qos_queue.configure(weights, capacity)
+        self._qos_native_apply(doc.get("session_bps") or {})
+
+    def _qos_native_apply(self, session_bps: dict) -> None:
+        """Per-session byte-rate budgets for the C++ data plane (epoll
+        proactor descriptor drain + threaded reads). Best effort: a
+        stale .so without the API simply stays unpaced — QoS fails
+        open, never into a lockout."""
+        if self.data_server is None:
+            return
+        try:
+            self.data_server.qos_set({
+                int(sid): int(bps) for sid, bps in session_bps.items()
+            })
+        except (AttributeError, ValueError, TypeError):
+            pass
 
     def _qos_tenant(self, session_id) -> str:
         try:
@@ -880,6 +1048,13 @@ class ChunkServer(Daemon):
         # (chunk_id, part_id) -> session; see _chunk_session
         sessions: dict[tuple[int, int], _WriteSession] = {}
         admin_state: dict = {}
+        # shared-memory part ring negotiated on this connection (pure-
+        # Python demux of the same descriptor frames serve_native.cpp's
+        # proactor drains; the mapping is released on disconnect)
+        shm_state: dict = {}
+        # in-flight _finish_write tasks still owe status frames on this
+        # writer; native streaming must not interleave with them
+        pending_writes: set[asyncio.Task] = set()
         try:
             while True:
                 try:
@@ -895,10 +1070,15 @@ class ChunkServer(Daemon):
                         msg.part_id, msg.offset, msg.size,
                     ))
                 elif isinstance(msg, m.CltocsRead):
+                    # native streaming needs exclusive use of the socket;
+                    # in-flight pipelined writes still owe status frames
                     t0 = time.perf_counter()
                     tw0 = time.time()
                     await self._debug_read_delay()
-                    await self._serve_read(writer, msg)
+                    await self._serve_read(
+                        writer, msg,
+                        native_ok=not sessions and not pending_writes,
+                    )
                     dt = time.perf_counter() - t0
                     self.metrics.timing("read").record(dt)
                     self.trace_ring.record(
@@ -936,10 +1116,18 @@ class ChunkServer(Daemon):
                 elif isinstance(msg, m.CltocsWriteInit):
                     await self._serve_write_init(writer, msg, sessions)
                 elif isinstance(msg, m.CltocsWriteData):
-                    await self._serve_write_data(writer, msg, sessions)
+                    await self._serve_write_data(
+                        writer, msg, sessions, pending_writes
+                    )
                 elif isinstance(msg, (m.CltocsWriteBulk,
                                       m.CltocsWriteBulkPart)):
                     await self._serve_write_bulk(writer, msg, sessions)
+                elif isinstance(msg, m.CltocsShmInit):
+                    await self._serve_shm_init(writer, msg, shm_state)
+                elif isinstance(msg, m.CltocsShmWritePart):
+                    await self._serve_shm_write(
+                        writer, msg, sessions, shm_state
+                    )
                 elif isinstance(msg, m.CltocsWriteEnd):
                     # one End seals EVERY part session of the chunk on
                     # this connection (the vectored client sends one
@@ -966,6 +1154,155 @@ class ChunkServer(Daemon):
         finally:
             for session in sessions.values():
                 await session.close()
+            mm = shm_state.pop("mm", None)
+            if mm is not None:
+                # peer gone (incl. SIGKILL): release the mapping now —
+                # segments are owned by the connection, never leaked
+                # across reconnects
+                mm.close()
+
+    async def _serve_shm_init(self, writer, msg: m.CltocsShmInit,
+                              shm_state: dict) -> None:
+        """Map the client's memfd ring segment (native/shm_ring.h).
+
+        The asyncio plane reads frames through a StreamReader, which
+        drops SCM_RIGHTS ancillary data, so the segment is opened via
+        ``/proc/<pid>/fd/<n>`` instead — same-host only, and the kernel
+        enforces the same same-uid gate the UDS SO_PEERCRED check does.
+        Acked with a CstoclWriteStatus; any refusal leaves the
+        connection on the socket-copy path."""
+        import mmap as mmap_mod
+        import socket as socket_mod
+
+        # same-host contract: a remote peer must not be able to drive
+        # the /proc fd mapping (or pin server-side segments).  Unix
+        # sockets qualify outright; TCP only from a loopback peer —
+        # pure-Python runs have no UDS data listener, so the demux's
+        # legitimate callers arrive over 127.0.0.1 (the /proc open
+        # still enforces the same-uid gate either way).
+        sock = writer.get_extra_info("socket")
+        peer = writer.get_extra_info("peername")
+        if sock is not None and sock.family == socket_mod.AF_UNIX:
+            same_host = True
+        else:
+            host = peer[0] if isinstance(peer, tuple) and peer else None
+            same_host = host in ("127.0.0.1", "::1")
+        code = st.OK
+        if (
+            not same_host
+            or not native_io.shm_ring_enabled()
+            or msg.seg_size <= 0
+            or msg.seg_size > (1 << 30)
+        ):
+            code = st.EINVAL
+        else:
+            try:
+                fd = os.open(
+                    f"/proc/{msg.pid}/fd/{msg.mem_fd}", os.O_RDONLY
+                )
+                try:
+                    if os.fstat(fd).st_size < msg.seg_size:
+                        raise OSError("segment smaller than advertised")
+                    mm = mmap_mod.mmap(
+                        fd, msg.seg_size, prot=mmap_mod.PROT_READ
+                    )
+                finally:
+                    os.close(fd)
+                old = shm_state.pop("mm", None)
+                if old is not None:
+                    old.close()  # renegotiation replaces the mapping
+                shm_state["mm"] = mm
+                shm_state["size"] = msg.seg_size
+                self.metrics.counter(
+                    "shm_segments_mapped",
+                    help="shm ring segments mapped from same-host "
+                         "clients (asyncio data plane)",
+                ).inc()
+            except OSError:
+                code = st.EINVAL
+        await framing.send_message(
+            writer,
+            m.CstoclWriteStatus(
+                req_id=msg.req_id, chunk_id=0, write_id=0, status=code
+            ),
+        )
+
+    async def _serve_shm_write(self, writer, msg: m.CltocsShmWritePart,
+                               sessions, shm_state: dict) -> None:
+        """Land one ring descriptor: the payload is read straight out
+        of the mapped segment; the wire carried only addressing + CRCs.
+        Acked exactly like a CltocsWriteBulkPart (FIFO per connection),
+        so the windowed client's ack collector is path-agnostic."""
+        session = sessions.get((msg.chunk_id, msg.part_id))
+        mm = shm_state.get("mm")
+
+        async def ack(code):
+            await framing.send_message(
+                writer,
+                m.CstoclWriteStatus(
+                    req_id=msg.req_id, chunk_id=msg.chunk_id,
+                    write_id=msg.write_id, status=code,
+                ),
+            )
+
+        nblocks = -(-msg.length // MFSBLOCKSIZE)
+        if (
+            session is None
+            or mm is None
+            or msg.length == 0
+            or msg.part_offset % MFSBLOCKSIZE != 0
+            or msg.ring_off + msg.length > shm_state.get("size", 0)
+            or len(msg.crcs) != nblocks
+        ):
+            await ack(st.EINVAL)
+            return
+        tw0 = time.time()
+        t0 = time.perf_counter()
+        data = bytes(mm[msg.ring_off : msg.ring_off + msg.length])
+
+        def apply_all():
+            pos = 0
+            for crc in msg.crcs:
+                piece = data[pos : pos + MFSBLOCKSIZE]
+                # store.write verifies the piece against its wire CRC
+                self.store.write(
+                    msg.chunk_id, session.version, session.part_id,
+                    (msg.part_offset + pos) // MFSBLOCKSIZE, 0,
+                    piece, int(crc),
+                )
+                pos += len(piece)
+
+        code = st.OK
+        qt = await self._qos_admit(session.session_id, msg.length)
+        try:
+            await asyncio.to_thread(apply_all)
+        except ChunkStoreError as e:
+            code = e.code
+        except Exception:
+            self.log.exception("shm write failed")
+            code = st.EIO
+        finally:
+            self._qos_done(qt, msg.length)
+        self.metrics.counter("bytes_written").inc(float(msg.length))
+        self.metrics.counter(
+            "shm_desc_writes",
+            help="part writes landed from shm ring descriptors "
+                 "(asyncio data plane)",
+        ).inc()
+        self.trace_ring.record(
+            session.trace_id, "cs_write_shm", tw0, time.time(),
+            role="chunkserver", bytes=msg.length,
+        )
+        dt = time.perf_counter() - t0
+        self.slo.observe(
+            "write", dt, trace_id=session.trace_id, name="cs_write_shm"
+        )
+        self.session_ops.record(
+            session.session_id or "unattributed", "write", dt,
+            nbytes=msg.length, trace_id=session.trace_id,
+        )
+        self._heat_charge(msg.chunk_id, msg.length)
+        await ack(code)
 
     @staticmethod
     def _read_delay_alias(ms) -> None:
@@ -1022,7 +1359,21 @@ class ChunkServer(Daemon):
             reply = m.AdminReply(req_id=msg.req_id, status=st.EINVAL, json="{}")
         await framing.send_message(writer, reply)
 
-    async def _serve_read(self, writer, msg: m.CltocsRead) -> None:
+    async def _serve_read(
+        self, writer, msg: m.CltocsRead, native_ok: bool = True
+    ) -> None:
+        if (
+            native_ok
+            and native_io.available()
+            and msg.size >= native_io.NATIVE_READ_THRESHOLD
+            # armed faults: the native load path bypasses store.read,
+            # where the disk_pread choke point lives — serve through
+            # the instrumented path (LZ_FAULTS unset: unchanged)
+            and not faultsmod.ACTIVE
+        ):
+            served = await self._serve_read_native(writer, msg)
+            if served:
+                return
         # QoS: the disk phase holds per-tenant in-flight credits (the
         # send phase must not — a wedged consumer would pin the shared
         # pool; its connection already self-backpressures)
@@ -1066,7 +1417,8 @@ class ChunkServer(Daemon):
         )
 
     async def _serve_read_bulk(self, writer, msg: m.CltocsReadBulk) -> None:
-        """The bulk read op: load pieces, reply with ONE frame whose CRCs the
+        """Asyncio fallback for the bulk read op (serve_native.cpp is
+        the fast path): load pieces, reply with ONE frame whose CRCs the
         receiver verifies."""
         def reply_err(code):
             return framing.send_message(
@@ -1099,6 +1451,151 @@ class ChunkServer(Daemon):
                 offset=msg.offset,
                 crcs=[crc for _, _, crc in pieces],
                 data=b"".join(bytes(d) for _, d, _ in pieces),
+            ),
+        )
+
+    async def _serve_read_native(self, writer, msg: m.CltocsRead) -> bool:
+        """Stream the response via native/io_native.cpp — load + CRC
+        verify under the chunk lock, then frame + send off the event
+        loop with the lock released and the GIL dropped. Returns False
+        to fall back to the per-piece asyncio path."""
+        try:
+            cf = self.store.require(msg.chunk_id, msg.version, msg.part_id)
+        except ChunkStoreError as e:
+            await framing.send_message(
+                writer,
+                m.CstoclReadStatus(
+                    req_id=msg.req_id, chunk_id=msg.chunk_id, status=e.code
+                ),
+            )
+            return True
+        max_bytes = cf.max_blocks() * MFSBLOCKSIZE
+        if msg.offset + msg.size > max_bytes:
+            await framing.send_message(
+                writer,
+                m.CstoclReadStatus(
+                    req_id=msg.req_id, chunk_id=msg.chunk_id, status=st.EINVAL
+                ),
+            )
+            return True
+        sock = writer.get_extra_info("socket")
+        if sock is None:
+            return False
+        if not native_io.serve_slot_available():
+            return False  # executor saturated (stalled clients): asyncio path
+
+        def load():
+            with cf.lock:
+                return native_io.load_read_blocking(
+                    cf.path, msg.offset, msg.size, cf.data_length()
+                )
+
+        native_io.serve_slot_acquire()
+        try:
+            return await self._serve_read_native_inner(
+                writer, msg, cf, sock, load
+            )
+        finally:
+            native_io.serve_slot_release()
+
+    async def _serve_read_native_inner(
+        self, writer, msg, cf, sock, load
+    ) -> bool:
+        # QoS in-flight credits cover the disk load (same contract as
+        # the asyncio path; the stream phase self-backpressures)
+        qt = await self._qos_admit(msg.session_id, msg.size)
+        try:
+            rc, buf, crcs = await native_io.run_serve(load)
+        except FileNotFoundError:
+            rc = st.NO_CHUNK  # file vanished between require() and open
+        except OSError:
+            rc = st.EIO  # transient local error (EMFILE, EACCES, ...)
+        finally:
+            self._qos_done(qt, msg.size)
+        if rc != st.OK:
+            self.log.warning(
+                "native read of %016X:%d failed: %s",
+                msg.chunk_id, msg.part_id, st.name(rc),
+            )
+            await framing.send_message(
+                writer,
+                m.CstoclReadStatus(
+                    req_id=msg.req_id, chunk_id=msg.chunk_id, status=rc
+                ),
+            )
+            return True
+        self.metrics.counter("bytes_read").inc(float(msg.size))
+        # raw fd sends must not jump ahead of queued transport bytes;
+        # drain() only waits below the high-water mark, so under
+        # sustained output the loaded buffer is streamed through the
+        # transport instead of being thrown away for a second disk pass
+        # lint: waive(unbounded-await): server->client read backpressure on the per-connection serve task — a wedged consumer parks only its own connection, reaped on disconnect; a timer would cut live slow readers
+        await writer.drain()
+        if writer.transport.get_write_buffer_size() != 0:
+            await self._stream_pieces_asyncio(writer, msg, buf, crcs)
+            return True
+        try:
+            # the streaming thread owns this dup: the connection task may
+            # be cancelled (and the transport fd closed + reused) while
+            # the thread is still sending
+            fd = os.dup(sock.fileno())
+        except OSError:
+            await self._stream_pieces_asyncio(writer, msg, buf, crcs)
+            return True
+        # exactly one of {worker thread, cancellation handler} claims the
+        # dup — a job cancelled while still queued never runs its
+        # finally, so the loser of this race must not touch the fd
+        claim = threading.Lock()
+
+        def stream_job():
+            if not claim.acquire(blocking=False):
+                return -1  # cancelled before start; fd already closed
+            return native_io.stream_read_blocking(
+                fd, msg.chunk_id, msg.req_id, msg.offset, msg.size,
+                buf, crcs,
+            )
+
+        self._native_streams.add(sock)
+        try:
+            rc = await native_io.run_serve(stream_job)
+        except BaseException:
+            # covers CancelledError and executor-rejected submissions
+            # (RuntimeError after shutdown): close the dup iff the
+            # worker never claimed it
+            if claim.acquire(blocking=False):
+                os.close(fd)
+            raise
+        finally:
+            self._native_streams.discard(sock)
+        if rc < 0:
+            writer.close()  # socket died mid-stream; let the loop unwind
+        return True
+
+    async def _stream_pieces_asyncio(self, writer, msg, buf, crcs) -> None:
+        """Send an already-loaded + verified range as normal framed
+        messages (used when the transport still has queued bytes)."""
+        pos = msg.offset
+        end = msg.offset + msg.size
+        idx = 0
+        while pos < end:
+            block_start = (pos // MFSBLOCKSIZE) * MFSBLOCKSIZE
+            piece_end = min(end, block_start + MFSBLOCKSIZE)
+            await framing.send_message(
+                writer,
+                m.CstoclReadData(
+                    req_id=msg.req_id,
+                    chunk_id=msg.chunk_id,
+                    offset=pos,
+                    crc=int(crcs[idx]),
+                    data=bytes(buf[pos - msg.offset:piece_end - msg.offset]),
+                ),
+            )
+            idx += 1
+            pos = piece_end
+        await framing.send_message(
+            writer,
+            m.CstoclReadStatus(
+                req_id=msg.req_id, chunk_id=msg.chunk_id, status=st.OK
             ),
         )
 
@@ -1191,7 +1688,9 @@ class ChunkServer(Daemon):
                 session.down_status.setdefault(wid, st.DISCONNECTED)
                 ev.set()
 
-    async def _serve_write_data(self, writer, msg: m.CltocsWriteData, sessions):
+    async def _serve_write_data(
+        self, writer, msg: m.CltocsWriteData, sessions, pending_writes
+    ):
         """Forward downstream in-order, then complete the local write and
         the upstream ack in a background task — the connection loop keeps
         reading, so blocks pipeline through the chain instead of paying
@@ -1218,7 +1717,9 @@ class ChunkServer(Daemon):
             except (ConnectionError, OSError):
                 session.down_status[msg.write_id] = st.DISCONNECTED
                 down_ev.set()
-        self.spawn(self._finish_write(writer, session, msg, down_ev))
+        task = self.spawn(self._finish_write(writer, session, msg, down_ev))
+        pending_writes.add(task)
+        task.add_done_callback(pending_writes.discard)
 
     async def _finish_write(self, writer, session, msg, down_ev) -> None:
         code = st.OK
@@ -1262,7 +1763,8 @@ class ChunkServer(Daemon):
             pass
 
     async def _serve_write_bulk(self, writer, msg, sessions):
-        """The bulk write ops: apply the whole block-aligned range, forward the
+        """Asyncio fallback for the bulk write ops (serve_native.cpp is
+        the fast path): apply the whole block-aligned range, forward the
         frame down the chain, single combined ack. Accepts both the
         chunk-addressed CltocsWriteBulk and the part-addressed
         CltocsWriteBulkPart (vectored clients multiplex several parts

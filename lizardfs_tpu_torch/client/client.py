@@ -140,6 +140,11 @@ class Client:
         # EATTR_NOCACHE bypasses the block cache for the inode,
         # EATTR_NOENTRYCACHE keeps it out of the dentry cache
         self._eattr: dict[int, int] = {}
+        # reusable stripe-scatter staging buffers, keyed (d, part_len):
+        # a fresh 64 MiB allocation pays its page faults inside the
+        # scatter copy (~2x measured cost); the write window keeps at
+        # most 2 chunks in flight, so 2 buffers per shape suffice
+        self._stage_buffers: dict[tuple[int, int], list[np.ndarray]] = {}
         # waiting lock requests: (inode, token) -> grant queue
         self._lock_grants: dict[tuple[int, int], asyncio.Queue] = {}
         # identity attached to permission-checked ops when the caller
@@ -216,7 +221,7 @@ class Client:
         # the read-side twin: busy-time per logical read decomposed as
         # locate (master RPC), dial (pool-miss connects), wait (QoS
         # throttle + retry backoff + shed waits), net (socket transfer,
-        # incl. the gather call), decode (plan postprocess /
+        # incl. the native gather call), decode (plan postprocess /
         # EC recovery), gather (stripe de-interleave). Deep layers that
         # can't see the client (conn pool, read executor) charge via
         # tracing.PHASE_SINK, activated around each logical read.
@@ -228,12 +233,21 @@ class Client:
         # double as client-role spans when the op runs under a trace;
         # merge with daemon `trace-dump` output via tracing.merge_timeline
         self.trace_ring = tracing.SpanRing()
-        # overlapped striped (xor/ec) chunk writes: the whole-chunk
-        # encode runs while the data parts are in flight.
-        # LZ_WRITE_PIPELINE=0 is the kill switch (strictly serial
-        # stage->encode->send ordering, the byte-identity golden
-        # reference).
+        # double-buffered stripe pipeline for striped (xor/ec) chunk
+        # writes: encode stripe segment i+1 while segment i's parts are
+        # in flight. LZ_WRITE_PIPELINE=0 is the kill switch (strictly
+        # serial stage->encode->send ordering, the byte-identity golden
+        # reference); LZ_WRITE_PIPELINE_SEGMENTS tunes pipeline depth.
         self.write_pipeline = env_flag("LZ_WRITE_PIPELINE")
+        try:
+            self.write_pipeline_segments = max(
+                2, int(_os.environ.get("LZ_WRITE_PIPELINE_SEGMENTS", "4"))
+            )
+        except ValueError:
+            self.write_pipeline_segments = 4
+        # below this chunk payload size the per-segment handshake
+        # overhead outweighs the overlap win — serial path handles it
+        self.WRITE_PIPELINE_MIN_BYTES = 8 * 1024 * 1024
         # client-side metrics registry: the write window registers its
         # depth/credit/coalesce series here. Embedders that export a
         # registry pass their own (the NFS gateway shares its
@@ -441,6 +455,13 @@ class Client:
         """Registration handshake body. Caller MUST hold _conn_lock."""
         self._info = info
         self._password = password
+        # spawn the native-IO pool threads while the process is quiet:
+        # lazy spawn inside submit() blocks the event loop under GIL
+        # pressure (measured 150-600 ms during EC write fan-out)
+        from lizardfs_tpu_torch.core import native_io
+
+        if native_io.available():
+            native_io.prestart_executors()
         last: Exception | None = None
         for addr in self.master_addrs:
             try:
@@ -1372,8 +1393,8 @@ class Client:
         tid, fresh_trace = tracing.begin()
         tw0 = _time.time()
         try:
-            # every chunk task spawned below copies this context, and
-            # its part writes read the session from it
+            # every chunk task spawned below copies this context — the
+            # native scatter path reads the session from it in-task
             session_ctx = accounting.task_session(self.session_id)
             session_ctx.__enter__()
             old_length = (await self.getattr(inode)).length
@@ -1472,7 +1493,7 @@ class Client:
         tid, fresh_trace = tracing.begin()
         tw0 = _time.time()
         try:
-            # session scope for the RMW read-backs + part writes
+            # session scope for the RMW read-backs + native write path
             # (paired __exit__ in the finally, as in write_file)
             session_ctx = accounting.task_session(self.session_id)
             session_ctx.__enter__()
@@ -1778,32 +1799,78 @@ class Client:
         if slice_type is None:
             raise st.StatusError(st.NO_CHUNK_SERVERS, "no locations granted")
 
+        # abort handles for every native send this chunk issues: a
+        # cancelled write must kill zombie executor threads before the
+        # staging buffer they stream from can go back to the pool
+        send_cells: list[dict] = []
+
         def send_of(part_idx: int, payload: np.ndarray,
                     skip_throttle: bool = False):
             length = striping.part_length(
                 slice_type, part_idx, len(chunk_data)
             )
+            cell: dict = {}
+            send_cells.append(cell)
             return self._write_part(
                 grant.chunk_id, grant.version, by_part[part_idx],
-                payload, length, skip_throttle=skip_throttle,
+                payload, length, skip_throttle=skip_throttle, cell=cell,
             )
 
-        async def send_batch(items: list[tuple[int, np.ndarray]]) -> None:
-            """Write several whole parts, one framed send each, charging
-            their bytes to the QoS budget once for the batch."""
+        async def send_batch(
+            items: list[tuple[int, np.ndarray]], skip_throttle: bool = False
+        ) -> None:
+            """Write several whole parts: ONE native poll-driven call
+            when every part has a single holder (no relay chain),
+            per-part sends otherwise or on native failure.
+            ``skip_throttle``: the caller already charged these bytes
+            (QoS rule: charge once, not per retry/fallback)."""
+            from lizardfs_tpu_torch.core import native_io
+
             items = [(p, pay) for p, pay in items if p in by_part]
             if not items:
                 return
-            # charged BEFORE the send timer starts: QoS queueing
-            # (token-bucket waits, the limit-renew RPC) must not be
-            # booked as send_ms, or a throttled client's phase row
-            # misattributes pacing as chunkserver transfer time
-            await self._throttle(sum(
+            lengths = [
                 striping.part_length(slice_type, p, len(chunk_data))
                 for p, _ in items
-            ))
+            ]
+            if not skip_throttle:
+                # charged BEFORE the send timer starts: QoS queueing
+                # (token-bucket waits, the limit-renew RPC) must not be
+                # booked as send_ms, or a throttled client's phase row
+                # misattributes pacing as chunkserver transfer time
+                await self._throttle(sum(lengths))
             t0 = self._t0()
             try:
+                if (
+                    native_io.parts_scatter_available()
+                    and not _faults.ACTIVE
+                    and len(items) > 1
+                    and all(len(by_part[p]) == 1 for p, _ in items)
+                ):
+                    cell: dict = {"submitted": True}
+                    send_cells.append(cell)
+                    try:
+                        await native_io.run(
+                            native_io.write_parts_scatter_blocking,
+                            [(by_part[p][0].addr.host,
+                              by_part[p][0].addr.port)
+                             for p, _ in items],
+                            grant.chunk_id, grant.version,
+                            [by_part[p][0].part_id for p, _ in items],
+                            [pay for _, pay in items], lengths, 0, cell,
+                        )
+                        self._record("parts_scatter_write")
+                        return
+                    except (native_io.NativeIOError, OSError,
+                            ConnectionError, st.StatusError):
+                        self._record("parts_scatter_fallback")
+                        # fall through per-part — bytes were already
+                        # charged to the throttle above, don't pay twice
+                        await asyncio.gather(*(
+                            send_of(p, pay, skip_throttle=True)
+                            for p, pay in items
+                        ))
+                        return
                 # bytes already charged above — per-part sends must not
                 # pay again (and their throttle would pollute the timer)
                 await asyncio.gather(*(
@@ -1812,6 +1879,21 @@ class Client:
                 ))
             finally:
                 self._phase("send", t0)
+
+        from lizardfs_tpu_torch.core import native_io
+
+        def _abort_zombie_sends() -> list[dict]:
+            """Kill executor threads of cancelled/failed native sends:
+            run_in_executor threads are unkillable, so a cancelled send
+            would otherwise keep streaming from its buffer for up to
+            120 s while pinning a native-IO worker."""
+            zombies = [
+                c for c in send_cells
+                if c.get("submitted") and not c.get("finished")
+            ]
+            for c in zombies:
+                native_io.abort_write(c)
+            return zombies
 
         if slice_type.is_standard or slice_type.is_tape:
             # whole-chunk copies: stream the caller's buffer directly
@@ -1827,24 +1909,33 @@ class Client:
                 for t in copy_tasks:
                     t.cancel()
                 await asyncio.gather(*copy_tasks, return_exceptions=True)
+                _abort_zombie_sends()
             return
         # striped slices: scatter into contiguous part streams first
-        # (one memcpy, the `stage` phase), then either
-        #   * the overlapped whole-chunk path (default): the whole-chunk
-        #     encode overlaps the data-part transfer (chunk_writer.cc
-        #     computes parity inline per stripe; this is its coarse
-        #     analog);
+        # (one memcpy, the `stage` phase), then hand off to one of:
+        #   * the segmented stripe pipeline (default, preconditions
+        #     permitting): encode segment i+1 while segment i's data AND
+        #     parity are in flight — parity lands straight in the send
+        #     buffer, no second staging copy;
+        #   * the overlapped whole-chunk path (pipeline on, but chains/
+        #     missing parts/no native scatter): whole-chunk encode
+        #     overlaps the data-part transfer (chunk_writer.cc computes
+        #     parity inline per stripe; this is its coarse analog);
         #   * the strictly serial path (LZ_WRITE_PIPELINE=0 kill
         #     switch): stage -> encode -> send(data) -> send(parity),
         #     the byte-identity golden reference whose phase totals sum
         #     to ~the rep wall time.
         d = slice_type.data_parts
+        nblocks = -(-len(chunk_data) // MFSBLOCKSIZE)
+        part_len = -(-nblocks // d) * MFSBLOCKSIZE
+        stage = self._stage_acquire(d, part_len)
         t0 = self._t0()
         stacked, _ = await asyncio.to_thread(
-            striping.padded_data_parts, chunk_data, d, None
+            striping.padded_data_parts, chunk_data, d, stage
         )
         self._phase("stage", t0)
         first = 1 if slice_type.is_xor else 0
+        full_chunk = len(chunk_data) == MFSCHUNKSIZE
 
         async def parity_parts() -> dict[int, np.ndarray]:
             t0 = self._t0()
@@ -1862,25 +1953,479 @@ class Client:
             finally:
                 self._phase("encode", t0)
 
-        if not self.write_pipeline:
-            par = await parity_parts()
-            await send_batch([(first + i, stacked[i]) for i in range(d)])
-            await send_batch(sorted(par.items()))
-            return
-        par_task = asyncio.ensure_future(parity_parts())
-        tasks = [asyncio.ensure_future(
-            send_batch([(first + i, stacked[i]) for i in range(d)])
-        )]
         try:
-            par = await par_task
-            tasks.append(asyncio.ensure_future(send_batch(sorted(par.items()))))
-            for t in tasks:
-                await t
+            throttled = False
+            if self.write_pipeline and self._pipeline_eligible(
+                slice_type, by_part, chunk_data, part_len
+            ):
+                # charge the QoS budget up front (one acquire for the
+                # chunk); a fallback below must then not charge again
+                await self._throttle(sum(
+                    striping.part_length(slice_type, p, len(chunk_data))
+                    for p in by_part
+                ))
+                throttled = True
+                try:
+                    if (self.write_window is not None
+                            and native_io.parts_scatterv_available()):
+                        # adaptive window: N unacked segments in flight
+                        # over shared per-chunkserver connections
+                        await self._push_striped_windowed(
+                            grant, chunk_data, slice_type, by_part,
+                            stacked, part_len, full_chunk, send_cells,
+                        )
+                        self._record("write_window")
+                    else:
+                        await self._push_striped_pipelined(
+                            grant, chunk_data, slice_type, by_part, stacked,
+                            part_len, full_chunk, send_cells,
+                        )
+                    # both overlapped paths count as the pipeline for
+                    # observability (the window is its deeper form)
+                    self._record("write_pipeline")
+                    return
+                except (native_io.NativeIOError, OSError, ConnectionError,
+                        st.StatusError):
+                    # torn segments are healed by the full-part rewrite
+                    # the paths below perform
+                    self._record("write_pipeline_fallback")
+            if not self.write_pipeline:
+                par = await parity_parts()
+                await send_batch(
+                    [(first + i, stacked[i]) for i in range(d)],
+                    skip_throttle=throttled,
+                )
+                await send_batch(sorted(par.items()), skip_throttle=throttled)
+                return
+            par_task = asyncio.ensure_future(parity_parts())
+            tasks = [asyncio.ensure_future(
+                send_batch(
+                    [(first + i, stacked[i]) for i in range(d)],
+                    skip_throttle=throttled,
+                )
+            )]
+            try:
+                par = await par_task
+                tasks.append(asyncio.ensure_future(
+                    send_batch(sorted(par.items()), skip_throttle=throttled)
+                ))
+                for t in tasks:
+                    await t
+            finally:
+                par_task.cancel()
+                for t in tasks:
+                    t.cancel()
+                await asyncio.gather(par_task, *tasks, return_exceptions=True)
         finally:
-            par_task.cancel()
-            for t in tasks:
+            # the coroutines are done, but a cancelled native send's
+            # executor thread may still be streaming from the staging
+            # buffer: kill it now, and never pool a buffer a zombie
+            # thread might still read
+            zombies = _abort_zombie_sends()
+            self._stage_release(
+                stage, poolable=full_chunk and not zombies
+            )
+
+    def _stage_acquire(self, d: int, part_len: int) -> np.ndarray | None:
+        # stage buffers only serve the native scatter; the numpy
+        # fallback ignores out= and would pool never-written memory
+        from lizardfs_tpu_torch.core import native
+
+        if not native.stripe_helpers_available():
+            return None
+        bucket = self._stage_buffers.get((d, part_len))
+        if bucket:
+            return bucket.pop()
+        return np.empty((d, part_len), dtype=np.uint8)
+
+    def _stage_release(self, buf: np.ndarray | None, poolable: bool) -> None:
+        # pool ONLY the full-chunk shape: tail chunks produce one shape
+        # per distinct file length, and keeping 2 buffers per shape
+        # forever would grow without bound on a long-lived mount
+        if buf is None or not poolable:
+            return
+        bucket = self._stage_buffers.setdefault(buf.shape, [])
+        if len(bucket) < 2:
+            bucket.append(buf)
+
+    def _parity_acquire(self, m: int, part_len: int) -> np.ndarray:
+        """Parity send buffer for the pipelined path ((m, part_len),
+        pooled with the stage buffers): the encoder writes parity
+        straight into it and the native scatter streams from it — the
+        per-chunk parity staging copy is gone."""
+        bucket = self._stage_buffers.get((m, part_len))
+        if bucket:
+            return bucket.pop()
+        return np.empty((m, part_len), dtype=np.uint8)
+
+    def _pipeline_eligible(
+        self, slice_type, by_part, chunk_data, part_len: int
+    ) -> bool:
+        """Segmented stripe pipeline preconditions: native scatter
+        built, every expected part granted with exactly one holder (no
+        relay chains — the session sends chain-less frames), and a
+        payload big enough that per-segment overlap beats the extra
+        segment barriers. Anything else takes the fallback paths."""
+        from lizardfs_tpu_torch.core import native_io
+
+        if not native_io.parts_scatter_available():
+            return False
+        if _faults.ACTIVE:
+            # armed faults: native scatter sessions can't be
+            # instrumented — the hookable per-part senders serve
+            return False
+        if len(chunk_data) < self.WRITE_PIPELINE_MIN_BYTES:
+            return False
+        if part_len < 2 * MFSBLOCKSIZE:
+            return False  # a single slot per part: nothing to overlap
+        return all(
+            p in by_part and len(by_part[p]) == 1
+            for p in range(slice_type.expected_parts)
+        )
+
+    def _stripe_send_plan(
+        self, grant, chunk_data, slice_type, by_part, stacked,
+        part_len: int, send_cells: list[dict], share: bool, nseg_min: int,
+    ):
+        """Shared prologue of the two overlapped stripe senders (the
+        double-buffered pipeline and the adaptive window): part order
+        and per-part lengths, the pooled parity send buffer, the
+        scatter session + abort cell, slot-aligned segment bounds, and
+        the per-segment encode/payload/length closures — a stripe-
+        geometry or encoder-boundary change lands in exactly one place.
+        Returns ``(par_buf, cell, session, bounds, encode_segment,
+        seg_payloads, seg_lengths)``."""
+        from lizardfs_tpu_torch.core import native_io
+
+        d = slice_type.data_parts
+        first = 1 if slice_type.is_xor else 0
+        m_par = 1 if slice_type.is_xor else slice_type.parity_parts
+        order = [first + i for i in range(d)] + (
+            [0] if slice_type.is_xor else [d + j for j in range(m_par)]
+        )
+        plens = {
+            p: striping.part_length(slice_type, p, len(chunk_data))
+            for p in order
+        }
+        par_buf = self._parity_acquire(m_par, part_len)
+        cell: dict = {}
+        send_cells.append(cell)
+        session = native_io.PartsScatterSession(
+            [(by_part[p][0].addr.host, by_part[p][0].addr.port)
+             for p in order],
+            grant.chunk_id, grant.version,
+            [by_part[p][0].part_id for p in order],
+            cell, share_connections=share,
+        )
+        blocks_per_part = part_len // MFSBLOCKSIZE
+        nseg = min(
+            max(self.write_pipeline_segments, nseg_min), blocks_per_part
+        )
+        seg_blocks = -(-blocks_per_part // nseg)
+        bounds = [
+            (a * MFSBLOCKSIZE,
+             min(a + seg_blocks, blocks_per_part) * MFSBLOCKSIZE)
+            for a in range(0, blocks_per_part, seg_blocks)
+        ]
+
+        def encode_segment(a: int, b: int, views=None) -> None:
+            data_seg = [stacked[i][a:b] for i in range(d)]
+            if views is not None:
+                # shm-ring staging: parity is encoded STRAIGHT into the
+                # chunkserver-mapped arena (zero copies end to end);
+                # data rows stay in the stage buffer — their single
+                # GIL-free memcpy into the arena happens inside the
+                # native descriptor send (native/shm_ring.h). The
+                # later "send" phase moves descriptors, not megabytes.
+                par_out = [views[d + j] for j in range(m_par)]
+                if par_out[0] is None:
+                    return  # segment past every part's live length
+                if slice_type.is_xor:
+                    self.encoder.xor_parity_into(data_seg, par_out[0])
+                else:
+                    self.encoder.encode_into(d, m_par, data_seg, par_out)
+                return
+            if slice_type.is_xor:
+                self.encoder.xor_parity_into(data_seg, par_buf[0][a:b])
+            else:
+                self.encoder.encode_into(
+                    d, m_par, data_seg,
+                    [par_buf[j][a:b] for j in range(m_par)],
+                )
+
+        def seg_payloads(a: int, b: int) -> list:
+            return (
+                [stacked[i][a:b] for i in range(d)]
+                + [par_buf[j][a:b] for j in range(m_par)]
+            )
+
+        def seg_lengths(a: int, b: int) -> list[int]:
+            return [max(min(b, plens[p]) - a, 0) for p in order]
+
+        return (par_buf, cell, session, bounds, encode_segment,
+                seg_payloads, seg_lengths)
+
+    async def _push_striped_pipelined(
+        self, grant, chunk_data, slice_type, by_part, stacked,
+        part_len: int, full_chunk: bool, send_cells: list[dict],
+    ) -> None:
+        """Double-buffered stripe pipeline: ONE WriteInit/End handshake
+        pair per part for the whole chunk, the part streams cut into
+        slot-aligned segments, and segment i+1's parity encoding (into
+        the send buffer, via the ChunkEncoder boundary) overlapping
+        segment i's data+parity transfer.
+
+        Byte-identical to the serial path by construction: RS/xor
+        parity is columnwise (parity[j][x] depends only on column x of
+        the data parts), so a per-segment encode equals the matching
+        slice of a whole-part encode; segment boundaries stay 64 KiB
+        aligned, so the chunkservers see the same per-block pieces and
+        store the same CRCs. Raises on any failure — the caller falls
+        back to the serial path, whose full-part rewrite heals torn
+        segments. The caller has already charged the QoS throttle."""
+        from lizardfs_tpu_torch.core import native_io
+
+        (par_buf, cell, session, bounds, encode_segment, seg_payloads,
+         seg_lengths) = self._stripe_send_plan(
+            grant, chunk_data, slice_type, by_part, stacked, part_len,
+            send_cells, share=False, nseg_min=2,
+        )
+
+        async def send_segment(a: int, b: int, wid: int, after) -> None:
+            # chained on the previous segment's task: the session's
+            # sockets carry one exchange at a time, and a predecessor's
+            # failure propagates down the chain
+            if after is not None:
+                await after
+            t0 = self._t0()
+            await native_io.run(
+                session.send_segment, seg_payloads(a, b),
+                seg_lengths(a, b), a, wid,
+            )
+            self._phase("send", t0)
+
+        send_tasks: list[asyncio.Task] = []
+        try:
+            t0 = self._t0()
+            await native_io.run(session.open)
+            self._phase("send", t0)
+            for wid, (a, b) in enumerate(bounds, start=1):
+                t0 = self._t0()
+                await asyncio.to_thread(encode_segment, a, b)
+                self._phase("encode", t0)
+                send_tasks.append(asyncio.ensure_future(send_segment(
+                    a, b, wid, send_tasks[-1] if send_tasks else None
+                )))
+            await send_tasks[-1]
+            t0 = self._t0()
+            await native_io.run(session.finish)
+            self._phase("send", t0)
+        except BaseException:
+            for t in send_tasks:
                 t.cancel()
-            await asyncio.gather(par_task, *tasks, return_exceptions=True)
+            await asyncio.gather(*send_tasks, return_exceptions=True)
+            # the session's executor thread may still be streaming from
+            # stacked/par_buf — kill the exchange before those buffers
+            # can be released (the caller's zombie-abort also covers
+            # this cell, but do it promptly here)
+            native_io.abort_write(cell)
+            raise
+        finally:
+            self._stage_release(
+                par_buf,
+                poolable=full_chunk and not (
+                    cell.get("submitted") and not cell.get("finished")
+                ),
+            )
+
+    async def _push_striped_windowed(
+        self, grant, chunk_data, slice_type, by_part, stacked,
+        part_len: int, full_chunk: bool, send_cells: list[dict],
+    ) -> None:
+        """Adaptive N-deep write window over the stripe pipeline: up to
+        ``write_window.depth`` slot-aligned segments ride UNACKNOWLEDGED
+        (part-addressed 1215 frames, vectored header+payload sendmsg,
+        parts sharing a chunkserver multiplexed over one connection),
+        with per-chunkserver credits + a shared staging-byte budget as
+        flow control. Acks are collected oldest-first as the window
+        fills — the per-segment round-trip barrier the PR-1 pipeline
+        paid (its send phase dominated the ec(8,4) telemetry) is gone.
+
+        Byte-identical to the serial path for the same reason the
+        pipelined path is: parity is columnwise, segments stay 64 KiB
+        aligned, and the chunkservers land the same per-block pieces
+        and CRCs — only the framing and ack cadence differ. Raises on
+        any failure; the caller's serial fallback heals torn segments.
+        The caller has already charged the QoS throttle."""
+        from lizardfs_tpu_torch.core import native_io
+
+        win = self.write_window
+        d = slice_type.data_parts  # ring widths: data rows vs parity
+        # nseg_min=win.max_depth: enough segments that the window can
+        # actually fill (a 4-deep window over 4 segments would
+        # degenerate to the old barrier)
+        (par_buf, cell, session, bounds, encode_segment, seg_payloads,
+         seg_lengths) = self._stripe_send_plan(
+            grant, chunk_data, slice_type, by_part, stacked, part_len,
+            send_cells, share=True, nseg_min=win.max_depth,
+        )
+
+        from collections import deque
+
+        # (write_id, credited bytes, encode seconds, send seconds so far)
+        outstanding: deque[list] = deque()
+        try:
+            t0 = self._t0()
+            await native_io.run(session.open)
+            self._phase("send", t0)
+            for wid, (a, b) in enumerate(bounds, start=1):
+                lengths = seg_lengths(a, b)
+                # shm-ring staging: reserve this segment's arena regions
+                # BEFORE encoding so parity lands straight in mapped
+                # memory. A full ring reaps the oldest segment's acks
+                # (freeing its regions) and retries; with nothing left
+                # to reap, this segment takes the socket-copy send.
+                views = None
+                if session.ring_ready():
+                    # parity regions are allocated at the full padded
+                    # segment width (the encoder writes the whole
+                    # column range); only the live bytes go on the wire
+                    widths = lengths[:d] + [b - a] * (len(lengths) - d)
+                    views = session.ring_stage(wid, lengths, widths)
+                    while views is None and outstanding:
+                        await self._window_collect(session, win, outstanding)
+                        views = session.ring_stage(wid, lengths, widths)
+                t0 = self._t0()
+                try:
+                    await asyncio.to_thread(encode_segment, a, b, views)
+                except BaseException:
+                    session.ring_unstage(wid)
+                    raise
+                enc_dt = _time.perf_counter() - t0[0]
+                self._phase("encode", t0)
+                payloads = seg_payloads(a, b)
+                if views is not None:
+                    # parity already lives in its staged arena view —
+                    # hand THAT as the payload so the native send sees
+                    # src == dst and moves zero parity bytes; data rows
+                    # keep their stage-buffer source for the C memcpy
+                    for idx in range(d, len(views)):
+                        if views[idx] is not None:
+                            payloads[idx] = views[idx]
+                seg_bytes = sum(lengths)
+                # credits BEFORE the send: per-chunkserver in-flight
+                # frames + the client-wide staging budget (returned as
+                # each segment's commit acks come back). NEVER block on
+                # credits while holding outstanding segments — reap the
+                # oldest instead (two concurrent chunk writes jointly
+                # exhausting a bucket would otherwise deadlock, each
+                # waiting for credits only the other's reap can free);
+                # blocking with nothing outstanding is safe, since any
+                # credit holder then has acks of its own to reap.
+                waited = False
+                w0 = tracing.phase_t0()
+                while not win.try_acquire(session.unique_addrs, seg_bytes):
+                    waited = True
+                    if outstanding:
+                        await self._window_collect(session, win, outstanding)
+                    else:
+                        await win.acquire(session.unique_addrs, seg_bytes)
+                        break
+                win.note_segment(waited)
+                if waited:
+                    # credit-gate queue wait (reap-or-block included):
+                    # the segment did no work while the window was full
+                    tracing.charge_queue_wait(
+                        self.metrics, self.trace_ring, "write_credit",
+                        "default", w0, role="client",
+                    )
+                try:
+                    t0 = self._t0()
+                    await native_io.run(
+                        session.send_segment_window, payloads, lengths,
+                        a, wid,
+                    )
+                    send_dt = _time.perf_counter() - t0[0]
+                    self._phase("send", t0)
+                except BaseException:
+                    win.release(session.unique_addrs, seg_bytes)
+                    raise
+                outstanding.append([wid, seg_bytes, enc_dt, send_dt])
+                # window full: reap the oldest segment's acks (depth is
+                # LIVE — adaptation may have moved it since the last
+                # segment, so reap down to the current depth)
+                while len(outstanding) >= max(win.depth, 1):
+                    await self._window_collect(session, win, outstanding)
+            while outstanding:
+                await self._window_collect(session, win, outstanding)
+            t0 = self._t0()
+            await native_io.run(session.finish)
+            self._phase("send", t0)
+        except BaseException:
+            # the session's executor thread may still be streaming from
+            # stacked/par_buf — kill the exchange before those buffers
+            # can be released
+            native_io.abort_write(cell)
+            raise
+        finally:
+            self._fold_ring_stats(session)
+            # failure path: return credits the reap loop never got to
+            for wid, seg_bytes, *_rest in outstanding:
+                win.release(session.unique_addrs, seg_bytes)
+            self._stage_release(
+                par_buf,
+                poolable=full_chunk and not (
+                    cell.get("submitted") and not cell.get("finished")
+                ),
+            )
+
+    _SHM_RING_HELP = {
+        "segments_mapped": "shm ring segments negotiated with same-host "
+                           "chunkservers (memfd mappings created)",
+        "desc_parts": "part writes handed off as shm-ring descriptors "
+                      "(payload moved via shared memory, not the socket)",
+        "full_waits": "segment stagings that found a ring full and had "
+                      "to reap acks first (ring backpressure events)",
+        "fallbacks": "windowed segments sent via socket copy while rings "
+                     "were active (ring-full or unstaged fallbacks)",
+    }
+
+    def _fold_ring_stats(self, session) -> None:
+        """Fold one scatter session's shm-ring counters into the client
+        registry (Prometheus-exported wherever the owner exposes it)."""
+        stats = getattr(session, "ring_stats", None)
+        if not stats:
+            return
+        for key, val in stats.items():
+            if val:
+                self.metrics.counter(
+                    f"shm_ring_{key}", help=self._SHM_RING_HELP[key]
+                ).inc(float(val))
+        if stats.get("desc_parts"):
+            # visible alongside write_pipeline/write_window counters:
+            # this chunk moved (at least partly) over the ring plane
+            self._record("write_shm")
+        session.ring_stats = {k: 0 for k in stats}
+
+    async def _window_collect(self, session, win, outstanding) -> None:
+        """Reap the oldest outstanding segment: collect its acks,
+        return its credits, and feed the adaptive depth controller."""
+        from lizardfs_tpu_torch.core import native_io
+
+        wid, seg_bytes, enc_dt, send_dt = outstanding.popleft()
+        try:
+            t0 = self._t0()
+            await native_io.run(session.collect_acks, wid)
+            # ack-reaping is backpressure (downstream disk/CPU), not
+            # push cost — charge it to its own phase so send_ms keeps
+            # measuring the copy the shm ring exists to eliminate; the
+            # depth controller still sees the combined time (ack wait
+            # is exactly the send-bound signal that should deepen it)
+            send_dt += _time.perf_counter() - t0[0]
+            self._phase("ack", t0)
+        finally:
+            win.release(session.unique_addrs, seg_bytes)
+        win.observe(enc_dt, send_dt)
 
     async def _write_part(
         self,
@@ -1891,17 +2436,50 @@ class Client:
         length: int,
         part_offset: int = 0,
         skip_throttle: bool = False,
+        cell: dict | None = None,
     ) -> None:
         """Write ``payload[:length]`` at ``part_offset`` within one part:
         head of the chain + forwarding for extra copies (WriteExecutor
         analog, write_executor.cc:66-96). Pieces never cross 64 KiB block
         boundaries; each carries its own CRC. ``skip_throttle``: the
         caller already charged these bytes (QoS rule: charge once, not
-        per retry/fallback)."""
+        per retry/fallback). ``cell``: abort handle for the native path —
+        a cancelled caller must be able to kill the executor thread that
+        is still streaming from ``payload`` (native_io.abort_write)."""
         if not skip_throttle:
             await self._throttle(max(length, 0))
         head = locs[0]
         chain = locs[1:]
+
+        # bulk writes stream their pieces in C++ off the event loop
+        from lizardfs_tpu_torch.core import native_io
+
+        if (
+            native_io.available()
+            and length >= native_io.NATIVE_WRITE_THRESHOLD
+            # armed faults: the C++ streamer can't be instrumented —
+            # the framed asyncio path below serves (LZ_FAULTS unset:
+            # byte-identical, the gate is one module-attribute check)
+            and not _faults.ACTIVE
+        ):
+            if cell is not None:
+                # marked BEFORE the executor hand-off: an abort racing
+                # the thread's connect phase must still see a zombie
+                cell["submitted"] = True
+            try:
+                await native_io.run(
+                    native_io.write_part_blocking,
+                    (head.addr.host, head.addr.port),
+                    chunk_id, version, head.part_id, chain,
+                    payload[:length], part_offset, cell,
+                )
+                return
+            except native_io.NativeIOError as e:
+                raise st.StatusError(
+                    e.code if e.code > 0 else st.EIO, str(e)
+                ) from None
+            except (OSError, ConnectionError) as e:
+                raise st.StatusError(st.EIO, f"native write: {e}") from None
 
         if _faults.ACTIVE:
             # client data-plane dial choke point (runtime/faults.py)
@@ -2136,9 +2714,9 @@ class Client:
         finally:
             for t in tasks:
                 t.cancel()
-            # join the stragglers: they may still be scattering into
-            # `out`; the caller must never see the exception before
-            # every writer is done with the buffer
+            # join the stragglers: their native reader threads may still
+            # be scattering into `out`; the caller must never see the
+            # exception before every writer is done with the buffer
             await asyncio.gather(*tasks, return_exceptions=True)
 
     async def _read_chunk_range(
@@ -2539,6 +3117,67 @@ class Client:
         nslots = hi_slot - lo_slot + 1
         wanted = [first_data + i for i in range(d)]
 
+        # whole-stripe fast path: all data parts healthy, the request is
+        # exactly a slot-aligned region, and the caller gave us a
+        # contiguous destination — ONE native call reads every part over
+        # polled sockets and de-interleaves in C (no per-part thread
+        # dispatch, no separate gather pass). Any failure falls through
+        # to the wave executor below, which handles recovery.
+        from lizardfs_tpu_torch.core import native_io
+
+        region_blocks = hi_block - lo_block + 1
+        if (
+            native_io.parts_gather_available()
+            # armed faults: the C gather can't be instrumented — the
+            # wave executor below serves (LZ_FAULTS unset: unchanged)
+            and not _faults.ACTIVE
+            and into is not None
+            and off == lo_slot * d * MFSBLOCKSIZE
+            and size == region_blocks * MFSBLOCKSIZE
+            and into.flags.c_contiguous and into.dtype == np.uint8
+            and all(p in by_part for p in wanted)
+            and attempt == 0
+        ):
+            cell: dict = {}
+            fut = asyncio.get_running_loop().run_in_executor(
+                native_io.EXECUTOR,
+                # partial_with_trace: run_in_executor drops context, so
+                # the request trace id rides the partial instead
+                native_io.partial_with_trace(
+                    native_io.read_parts_gather_blocking,
+                    [by_part[p][0] for p in wanted],
+                    loc.chunk_id, loc.version,
+                    [by_part[p][1] for p in wanted],
+                    lo_slot * MFSBLOCKSIZE, region_blocks,
+                    into[into_offset : into_offset + size],
+                    cell,
+                ),
+            )
+            # run_in_executor does not propagate the phase-sink context;
+            # the whole native gather (sockets + C de-interleave) is
+            # timed at the await and charged as net — the chunkserver's
+            # queue/disk/net attrs refine it in the attribution view
+            t0 = self._t0()
+            try:
+                await asyncio.shield(fut)
+                self._read_phase("net", t0)
+                for p in wanted:
+                    GLOBAL_STATS.record_success(by_part[p][0])
+                # counted so tests/operators can see the fast path is
+                # actually taken (a silent precondition miss would
+                # quietly forfeit the 3x read win)
+                self._record("stripe_gather_fast")
+                return None
+            except asyncio.CancelledError:
+                native_io.abort_parts_gather(cell)
+                try:
+                    await asyncio.wait_for(asyncio.shield(fut), 10.0)
+                except (Exception, asyncio.CancelledError):
+                    pass
+                raise
+            except (native_io.NativeIOError, OSError, ConnectionError):
+                self._record("stripe_gather_fallback")
+                # degrade to the plan path (waves + recovery)
         # per-part scores from the shared chunkserver health registry:
         # an unhealthy holder's part drops in rank, so recovery reads
         # prefer parts on healthy servers (read_plan_executor.cc:95)
@@ -2560,9 +3199,9 @@ class Client:
             on_part_failure=self._part_failure_observer(loc),
         )
         # reassemble the stripes we read, then slice the requested bytes.
-        # The gather runs off-loop — at 64 MiB chunks an on-loop
-        # de-interleave serialized every concurrent read behind ~40 ms
-        # of memcpy.
+        # The gather runs off-loop (native stripe_gather releases the
+        # GIL) — at 64 MiB chunks an on-loop de-interleave serialized
+        # every concurrent read behind ~40 ms of memcpy.
         bps = nslots * MFSBLOCKSIZE
         data_parts = {
             wanted[i]: buf[i * bps : (i + 1) * bps] for i in range(len(wanted))

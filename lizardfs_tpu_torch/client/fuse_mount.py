@@ -194,6 +194,17 @@ class LizardFuse:
         # open-time snapshots of special-inode content so piecewise
         # kernel reads see a consistent document (no torn .oplog)
         self._special_snap: dict[bytes, bytes] = {}
+        # direct C read path: libfuse callback threads call liz_read
+        # without a hop through the asyncio loop (latency path; see
+        # client/native_client.py)
+        from lizardfs_tpu_torch.client import native_client
+
+        self._native_reads = (
+            native_client.NativeReadPool(
+                lambda: self.client.current_master_addr
+            )
+            if native_client.available() else None
+        )
 
     def start(self) -> None:
         self._loop_thread.start()
@@ -490,7 +501,17 @@ class LizardFuse:
                 ctypes.memmove(buf, piece, len(piece))
                 return len(piece)
             inode = fi.contents.fh or self._resolve(path).inode
-            data = self._run(self.client.read_file(inode, offset, size))
+            data = None
+            # the native pool cannot classify callers or pace, so it
+            # stands down while ANY cluster IO limit is active — every
+            # byte must pass the client's group throttle
+            if (
+                self._native_reads is not None
+                and not self.client.io_limits_active
+            ):
+                data = self._native_reads.read(inode, offset, size)
+            if data is None:  # striped/degraded or pool busy: planner path
+                data = self._run(self.client.read_file(inode, offset, size))
             ctypes.memmove(buf, data, len(data))
             return len(data)
 
@@ -668,9 +689,13 @@ def mount(master_addrs: list[tuple[str, int]], mountpoint: str,
         c_int, ctypes.POINTER(c_char_p), ctypes.POINTER(FuseOperations),
         c_size_t, c_void_p,
     ]
-    return lib.fuse_main_real(
-        len(argv_list), argv, ctypes.byref(ops), ctypes.sizeof(ops), None
-    )
+    try:
+        return lib.fuse_main_real(
+            len(argv_list), argv, ctypes.byref(ops), ctypes.sizeof(ops), None
+        )
+    finally:
+        if bridge._native_reads is not None:
+            bridge._native_reads.close()
 
 
 def main(argv=None) -> int:

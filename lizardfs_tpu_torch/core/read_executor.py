@@ -6,14 +6,6 @@ wave when a wave timeout expires or a read fails, finish as soon as the
 plan says enough parts arrived, then post-process (recovery). Used by
 the client read path and by the chunkserver replicator (both read chunk
 parts from chunkservers).
-
-The port's copy of the JAX package's ``core/read_executor.py``, the
-asyncio path only: the JAX package hands bulk reads to its native C++
-exchange (``core/native_io``) when that library is built, and the port
-has no native data plane yet, so every read takes the framed asyncio
-exchange below, as the JAX package's does whenever its native library
-is absent or fault rules are armed. Piece CRCs are checked on the host
-(``ops/crc32.py``), as the JAX package checks them.
 """
 
 from __future__ import annotations
@@ -29,6 +21,7 @@ from lizardfs_tpu_torch.proto import framing
 from lizardfs_tpu_torch.proto import messages as m
 from lizardfs_tpu_torch.proto import status as st
 from lizardfs_tpu_torch.runtime import accounting
+from lizardfs_tpu_torch.runtime import faults as _faults
 from lizardfs_tpu_torch.runtime import tracing
 
 log = logging.getLogger("read_executor")
@@ -68,6 +61,75 @@ async def read_part_range(
     out = into if into is not None else np.zeros(size, dtype=np.uint8)
     if size == 0:
         return out[into_offset:into_offset]
+
+    # bulk reads run the whole exchange in C++ off the event loop
+    # (framing + CRC + scatter with the GIL released)
+    from lizardfs_tpu_torch.core import native_io
+
+    if (
+        native_io.available()
+        and size >= native_io.NATIVE_READ_THRESHOLD
+        # armed faults: the C++ exchange cannot be instrumented, so the
+        # hookable asyncio path below serves (LZ_FAULTS unset: no change)
+        and not _faults.ACTIVE
+    ):
+        # scatter straight into the caller's buffer whenever it is
+        # contiguous: each op owns a disjoint region, and the cancel
+        # path below aborts the socket and JOINS the executor thread, so
+        # by the time execute_plan's finally finishes (it gathers every
+        # cancelled task) no thread can still be writing the plan buffer
+        # that post-processing reads. This removes a private-buffer
+        # allocation + an on-loop memcpy per part (64 MiB per EC chunk).
+        scatter_direct = (
+            into is not None and out.flags.c_contiguous
+            and out.dtype == np.uint8
+        )
+        if scatter_direct:
+            tmp = out[into_offset : into_offset + size]  # view, no copy
+        else:
+            tmp = np.empty(size, dtype=np.uint8)
+        # when scattering into the CALLER's buffer, the uninterruptible
+        # executor thread must not outlive this coroutine: a cancelled
+        # or failed attempt would otherwise keep writing `out` while a
+        # retry refills the same region. The cell lets us shut the
+        # socket down (killing the thread's recv) and join it.
+        cell: dict = {}
+        fut = asyncio.get_running_loop().run_in_executor(
+            native_io.EXECUTOR,
+            # partial_with_trace: carries the request trace id into the
+            # worker thread (plain run_in_executor drops context)
+            native_io.partial_with_trace(
+                native_io.read_part_blocking,
+                addr, chunk_id, version, part_id, offset, size, tmp,
+                cell if scatter_direct else None,
+            ),
+        )
+        # run_in_executor drops the phase-sink context too: the native
+        # exchange is timed here and charged as read-phase net (parallel
+        # part reads overlap, so net busy-time may exceed wall — the
+        # PhaseBreakdown pipelining contract)
+        t0 = tracing.phase_t0()
+        try:
+            await asyncio.shield(fut)
+            tracing.charge_phase("net", t0)
+            GLOBAL_STATS.record_success(addr)
+            if not scatter_direct:
+                out[into_offset : into_offset + size] = tmp
+            return out
+        except asyncio.CancelledError:
+            if scatter_direct:
+                native_io.abort_read(cell)
+                try:
+                    await asyncio.wait_for(asyncio.shield(fut), 10.0)
+                except (Exception, asyncio.CancelledError):
+                    pass
+            raise
+        except native_io.NativeIOError as e:
+            GLOBAL_STATS.record_failure(addr)
+            raise ReadError(str(e), crc="crc" in str(e).lower()) from None
+        except (OSError, ConnectionError) as e:
+            GLOBAL_STATS.record_failure(addr)
+            raise ReadError(f"native read failed: {e}") from None
 
     conn = await GLOBAL_POOL.acquire(addr)
     clean = False

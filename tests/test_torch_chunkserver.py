@@ -1,7 +1,12 @@
 """The port's ``ChunkServer`` against the JAX package's, on the CPU.
 
+* Source: ``chunkserver/server.py`` is the JAX package's, its native
+  data plane included, but for the card's encoder and the replicator's
+  steps; ``chunkserver/__main__.py`` differs only in its encoder default.
 * The encoder: without one a server resolves the card's and raises here,
-  where there is none; the entry point refuses a native data plane.
+  where there is none. The entry point starts the native data plane under
+  ``NATIVE_DATA_PLANE = true`` and under the default, as the JAX
+  package's does, and not under ``false``.
 * Rebuild: ``_cmd_replicate`` on a port server and on a JAX server, over
   the same source servers (of both packages, written over the wire),
   write byte-identical part files, CRC slots included, holding the lost
@@ -13,7 +18,9 @@
 * The master link: a port server registers with the JAX package's
   master, which lists it and the part it reported.
 
-Every case runs in process on ephemeral localhost ports, byte-exact.
+Every case runs in process on ephemeral localhost ports, byte-exact, on
+the asyncio data path of both packages (the native plane is compared in
+``tests/test_torch_native_*.py``).
 """
 
 import asyncio
@@ -34,7 +41,9 @@ from lizardfs_tpu_torch.proto import messages as m
 from lizardfs_tpu_torch.runtime import faults
 from lizardfs_tpu_torch.utils import striping
 from tests.test_cluster import make_goals
-from tests.test_torch_read_executor import ENCODER, PKG, addr, running, seeded, write_part
+from tests.test_torch_master import assert_departs
+from tests.test_torch_read_executor import (  # noqa: F401 (autouse fixture)
+    ENCODER, PKG, addr, asyncio_port_executor, running, seeded, write_part)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -55,12 +64,185 @@ def test_server_without_an_encoder_needs_the_card(tmp_path):
     assert isinstance(cs.encoder, CpuChunkEncoder)
 
 
-def test_entry_point_refuses_a_native_data_plane(tmp_path, monkeypatch):
+@pytest.mark.parametrize("setting,plane", [
+    ("NATIVE_DATA_PLANE = true\n", True), ("", True), ("NATIVE_DATA_PLANE = false\n", False),
+], ids=["true", "default", "false"])
+def test_entry_point_starts_the_native_data_plane(tmp_path, monkeypatch, setting, plane):
+    """``main()`` with its loop cut to a start and a stop (against a JAX
+    master on an ephemeral port): the listener is up, on its own port,
+    exactly when the key says so."""
     cfg = tmp_path / "cs.cfg"
-    cfg.write_text(f"DATA_PATH = {tmp_path / 'data'}\nNATIVE_DATA_PLANE = true\n")
+    cfg.write_text(f"DATA_PATH = {tmp_path / 'data'}\nENCODER = cpu\n{setting}")
+    monkeypatch.setenv("LZ_NO_UDS", "1")  # no abstract listener on the shared host
+    seen = {}
+
+    async def start_and_stop(self):
+        master = MasterServer(str(tmp_path / "m"), goals=make_goals())
+        await master.start()
+        self.master_addrs = [("127.0.0.1", master.port)]
+        self.master_addr = self.master_addrs[0]
+        try:
+            await self.start()
+            seen["data_port"] = self.data_server.port if self.data_server else None
+            seen["port"] = self.port
+            await self.stop()
+        finally:
+            await master.stop()
+
+    monkeypatch.setattr(cs_main.ChunkServer, "run_forever", start_and_stop)
     monkeypatch.setattr("sys.argv", ["chunkserver", str(cfg)])
-    with pytest.raises(SystemExit, match="NATIVE_DATA_PLANE"):
-        cs_main.main()
+    cs_main.main()
+    if plane:
+        assert seen["data_port"] and seen["data_port"] != seen["port"]
+    else:
+        assert seen["data_port"] is None
+
+
+def test_server_departs_only_by_its_encoder_and_replicator():
+    """The port's ``ChunkServer`` is the JAX package's, its native data
+    plane included (the listener's start and stand-down, the stats,
+    trace and QoS folds, the native read exchange and the shared-memory
+    ring's demux), but for the card's encoder and the replicator's steps
+    in ``chunkserver/replicate.py``."""
+    removed = [
+        'ChunkStore,',
+        'from lizardfs_tpu_torch.core import geometry, native_io, plans',
+        'from lizardfs_tpu_torch.core.encoder import get_encoder',
+        'encoder_name: str | None = "cpu",',
+        'self.encoder = get_encoder(encoder_name)',
+        "# the auto ladder's mesh-sharded backend when real multichip",
+        '# silicon is attached (LZ_SHARDED_RECOVERY=0 kills it), else',
+        '# the configured encoder',
+        '"""The rebuild compute backend: try the encoder auto-ladder\'s',
+        'mesh-sharded wide-stripe decoder (parallel/recovery.py) — it',
+        'binds only on a real multi-device mesh with the',
+        'LZ_SHARDED_RECOVERY switch open — and degrade to the configured',
+        'single-chip encoder everywhere else."""',
+        'try:',
+        'self._recovery_encoder = get_encoder("sharded")',
+        'except Exception:  # no mesh / no silicon / kill switch',
+        'self._recovery_encoder = self.encoder',
+        'target = geometry.ChunkPartType.from_id(msg.part_id)',
+        'slice_type = target.type',
+        '# source availability: slice part index -> (addr, wire part id)',
+        'locations: dict[int, tuple[tuple[str, int], int]] = {}',
+        'for loc in msg.sources:',
+        'cpt = geometry.ChunkPartType.from_id(loc.part_id)',
+        'if int(cpt.type) == int(slice_type):',
+        'locations.setdefault(',
+        'cpt.part, ((loc.addr.host, loc.addr.port), loc.part_id)',
+        ')',
+        'nblocks = geometry.number_of_blocks_in_part(target)',
+        'if int(slice_type) == geometry.STANDARD:',
+        '# plain copy of the same part (mode 1 of slice_recovery_planner)',
+        'if 0 not in locations:',
+        'raise ChunkStoreError(st.NO_CHUNK, "no source for copy")',
+        'plan = plans.plan_for_standard(nblocks * MFSBLOCKSIZE)',
+        'else:',
+        'from lizardfs_tpu_torch.core.cs_stats import GLOBAL_STATS',
+        '',
+        'planner = plans.SliceReadPlanner(',
+        'slice_type, list(locations.keys()),',
+        'scores={p: GLOBAL_STATS.score(a)',
+        'for p, (a, _) in locations.items()},',
+        'encoder=self._replicator_encoder(),',
+        ')',
+        'if not planner.is_readable([target.part]):',
+        'raise ChunkStoreError(st.NO_CHUNK, "not enough source parts")',
+        '# per-part geometry lengths: trailing data parts hold one block',
+        "# fewer than part 0 when the chunk doesn't stripe evenly",
+        'part_sizes = {',
+        'p: geometry.number_of_blocks_in_part(',
+        'geometry.ChunkPartType(slice_type, p)',
+        ')',
+        '* MFSBLOCKSIZE',
+        'for p in range(slice_type.expected_parts)',
+        '}',
+        'plan = planner.build_plan([target.part], 0, nblocks, part_sizes)',
+        '# starve rebuilds either (ROADMAP 4 both ways)',
+        '',
+        'def write_part():',
+        'if self.store.get(msg.chunk_id, msg.part_id) is None:',
+        'self.store.create(msg.chunk_id, msg.version, msg.part_id)',
+        'arr = np.asarray(data[: nblocks * MFSBLOCKSIZE])',
+        'blocks = arr.reshape(nblocks, MFSBLOCKSIZE)',
+        'crcs = self.encoder.checksum(blocks)',
+        'for b in range(nblocks):',
+        'self.store.write(',
+        'msg.chunk_id,',
+        'msg.version,',
+        'msg.part_id,',
+        'b,',
+        '0,',
+        'blocks[b].tobytes(),',
+        'int(crcs[b]),',
+        ')',
+        '',
+        'await asyncio.to_thread(write_part)',
+        '# cousin of the PR-8 blackholed-WriteInit fix)',
+    ]
+    added = [
+        '',
+        "The port's copy of the JAX package's ``chunkserver/server.py``, with",
+        'these differences:',
+        "* the encoder is the card's: ``ChunkServer`` takes an ``encoder`` or",
+        'an ``encoder_name``, and with neither resolves ``get_encoder()``,',
+        'which raises without a card. Tests pass a CPU encoder;',
+        "* the replicator's steps are ``chunkserver/replicate.py``'s",
+        '``plan_rebuild`` and ``write_rebuilt`` around the network read, and',
+        'its recovery encoder falls back to the configured one only on the',
+        "sharded encoder's ``MeshUnavailable``.",
+        'The native data plane (the C++ listener of ``native_serve``, the native',
+        "read exchange and the shared-memory part ring) is the JAX package's, on",
+        "the port's build of ``native/`` (``core/native.py``).",
+        'from lizardfs_tpu_torch.chunkserver import replicate',
+        'from lizardfs_tpu_torch.core import geometry, native_io',
+        'from lizardfs_tpu_torch.core.encoder import ChunkEncoder, get_encoder',
+        'encoder: ChunkEncoder | None = None,',
+        'encoder_name: str | None = None,',
+        '# the configured encoder: the one given, else by name, else the',
+        "# card's (get_encoder() raises without one)",
+        'self.encoder = encoder if encoder is not None else get_encoder(encoder_name)',
+        '# the mesh-sharded encoder over two or more cards',
+        '# (LZ_SHARDED_RECOVERY=0 kills it), else the configured encoder',
+        '"""The rebuild compute backend: the mesh-sharded encoder where',
+        'it binds (two or more cards, the LZ_SHARDED_RECOVERY switch',
+        "open), else the configured encoder. Only the sharded encoder's",
+        'refusal falls back (``replicate.replicator_encoder``)."""',
+        'self._recovery_encoder = replicate.replicator_encoder(self.encoder)',
+        'if self._recovery_encoder is not self.encoder:',
+        '# source availability, the plan (a plain copy for std, else the',
+        "# slice planner over the sources' health scores) and the part's",
+        "# block count; recovery runs on the replicator's encoder",
+        'plan, locations, nblocks = replicate.plan_rebuild(',
+        'msg.part_id, msg.sources, self._replicator_encoder()',
+        ')',
+        '# starve rebuilds either',
+        '# the checksum runs on the configured encoder, not the recovery one',
+        'await asyncio.to_thread(',
+        'replicate.write_rebuilt, self.store, msg.chunk_id, msg.version,',
+        'msg.part_id, data, nblocks, self.encoder,',
+        ')',
+        '# cousin of the bounded WriteInit reply above)',
+    ]
+    assert_departs("chunkserver/server.py", removed, added)
+
+
+def test_entry_point_departs_only_by_its_encoder():
+    """``NATIVE_DATA_PLANE`` is read as the JAX package reads it, default
+    true; only the encoder's default differs."""
+    removed = [
+        '"""Run a chunkserver: python -m lizardfs_tpu_torch.chunkserver [config]',
+        'MASTER_HOST/PORT), LABEL, ENCODER (cpu|cpp|tpu|auto),',
+        'encoder_name=cfg.get_str("ENCODER", "cpu"),',
+    ]
+    added = [
+        '"""Run the port\'s chunkserver: python -m lizardfs_tpu_torch.chunkserver [config]',
+        'MASTER_HOST/PORT), LABEL, ENCODER (cuda|sharded|auto|cpu; unset is',
+        "the card's, ``get_encoder()``, which refuses to start without one),",
+        'encoder_name=cfg.get_str("ENCODER", "") or None,',
+    ]
+    assert_departs("chunkserver/__main__.py", removed, added)
 
 
 REBUILDS = {  # slice type, lost part
@@ -179,7 +361,7 @@ def test_registers_with_the_reference_master(tmp_path):
         try:
             chunk = master.meta.registry.create_chunk(int(std), version=3)
             cs = port_server.ChunkServer(str(tmp_path / "cs"), master_addr=("127.0.0.1", master.port),
-                                         encoder=ENCODER)
+                                         encoder=ENCODER, native_data_plane=False)
             cs.store.create(chunk.chunk_id, 3, pid)
             cs.store.write(chunk.chunk_id, 3, pid, 0, 0, block, crc32.crc32(block))
             await cs.start()

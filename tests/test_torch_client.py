@@ -3,10 +3,10 @@ JAX package's, on the CPU.
 
 * Source: the client's helper modules are verbatim copies (the package
   name changed in imports; lines that cite the JAX package's own change
-  requests by number are reworded). ``client.py`` is the
-  asyncio path of the JAX package's: every branch of its native data
-  plane is gone, and what is left equals the original line for line but
-  for a few reworded comments and the per-part batch send.
+  requests by number are reworded). ``client.py`` is the JAX
+  package's, its native data plane included, line for line but for four
+  reworded comments: the encoder's default and three that cite change
+  requests by number.
 * Clusters: a port cluster (a port ``MasterServer``, port
   ``ChunkServer``s on ``CudaChunkEncoder(device="cpu")`` and a port
   ``Client`` on the same encoder) runs the scenarios of
@@ -21,17 +21,16 @@ JAX package's, on the CPU.
 * Interop: a port client on a JAX master and JAX chunkservers, and a JAX
   client on a port master and port chunkservers.
 
-The JAX side runs its asyncio data path (``native_data_plane=False`` on
-its servers, its client's native exchange set aside), as the port has no
-native data plane. Every case is in process on ephemeral localhost ports,
+Both sides run their asyncio data path (``native_data_plane=False`` on
+the servers, both clients' native exchange set aside): the native data
+plane is compared in ``tests/test_torch_native_*.py``. Every case is in
+process on ephemeral localhost ports,
 polls with a bound of a few seconds, and closes both packages' connection
 pools after its event loop.
 """
 
 import asyncio
-import difflib
 import importlib
-import re
 import time
 from pathlib import Path
 
@@ -44,10 +43,10 @@ from lizardfs_tpu.core import native_io as ref_native_io
 from lizardfs_tpu.core.encoder import CpuChunkEncoder as RefCpuChunkEncoder
 from lizardfs_tpu_torch.chunkserver.chunk_store import HEADER_SIZE
 from lizardfs_tpu_torch.client import client as port_client
-from lizardfs_tpu_torch.core import conn_pool
+from lizardfs_tpu_torch.core import conn_pool, native_io
 from lizardfs_tpu_torch.core.encoder import CudaChunkEncoder
 from lizardfs_tpu_torch.runtime import faults
-from tests.test_torch_master import CHANGE_REFERENCE, assert_copy, renamed
+from tests.test_torch_master import assert_copy, assert_departs
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGES = {"jax": "lizardfs_tpu", "port": "lizardfs_tpu_torch"}
@@ -72,9 +71,10 @@ def two_threads():
 
 @pytest.fixture(autouse=True)
 def asyncio_jax_client(monkeypatch):
-    """The JAX client's native exchange set aside, so that both clients
-    run the asyncio data path."""
+    """Both clients' native exchange set aside, so that both run the
+    asyncio data path."""
     monkeypatch.setattr(ref_native_io, "_lib", None)
+    monkeypatch.setattr(native_io, "_lib", None)
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -83,22 +83,25 @@ def test_copied_module_matches_reference(rel):
 
 
 def test_client_is_the_reference_asyncio_path():
-    """Every line the port's client keeps is the JAX package's, in order;
-    what it drops is the native data plane; the few lines it adds reword
-    comments or send per part."""
-    ref = renamed("client/client.py").splitlines()
-    port = (ROOT / "lizardfs_tpu_torch/client/client.py").read_text().splitlines()
-    removed, added = [], []
-    for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(None, ref, port, autojunk=False).get_opcodes():
-        if tag != "equal":
-            removed += ref[i1:i2]
-            added += port[j1:j2]
-    plane = re.compile(r"\bnative(_io)?\.|_pipeline_eligible|_stage_acquire|_push_striped")
-    assert not [line for line in port if plane.search(line)]
-    assert sum(bool(plane.search(line)) for line in removed) >= 40
-    assert len(added) <= 60, added
-    assert not [line for line in added if CHANGE_REFERENCE.search(line)]
-    assert len(port) >= len(ref) - 700, "only the native data plane's lines went"
+    """The port's client is the JAX package's, the asyncio path and the
+    native data plane, but for the encoder default's comment and three
+    comments that cite change requests by number."""
+    assert_departs("client/client.py", [
+        '# default "auto": tpu on real silicon, else the native C++ SIMD',
+        "# backend, else numpy — the old hardcoded \"cpu\" default made any",
+        "# library user pay the golden path's 3.8x penalty (VERDICT r05",
+        "# weak #2); LIZARDFS_TPU_ENCODER still overrides",
+        "# adaptive N-deep write window (spends PR 1's phase telemetry):",
+        "# LZ_WRITE_WINDOW=0 is the kill switch: the PR-1 double-buffered",
+        "# implementation detail below this line (the PR-7 double-count",
+    ], [
+        "# default: the card's encoder (get_encoder(None): cuda:0, or the",
+        "# mesh over two or more cards), which raises without a card;",
+        "# callers on the CPU pass an encoder",
+        "# adaptive N-deep write window (spends the write phase telemetry):",
+        "# LZ_WRITE_WINDOW=0 is the kill switch: the double-buffered",
+        "# implementation detail below this line (the double-count",
+    ])
 
 
 def test_client_without_an_encoder_needs_the_card():
@@ -121,8 +124,10 @@ def make_goals(pkg: str):
 class Cluster:
     """A master, chunkservers and clients, each of the package named."""
 
-    def __init__(self, root: Path, master="port", servers="port", client="port", n_cs=6):
+    def __init__(self, root: Path, master="port", servers="port", client="port", n_cs=6,
+                 native_data_plane=False, cs_host="127.0.0.1"):
         self.root, self.pkgs, self.n_cs = root, (master, servers, client), n_cs
+        self.native_data_plane, self.cs_host = native_data_plane, cs_host
         self.master = None
         self.chunkservers = []
         self.clients = []
@@ -138,11 +143,10 @@ class Cluster:
 
     async def add_chunkserver(self, folder, master_port=None):
         cs_pkg = self.pkgs[1]
-        kw = ({"encoder": ENCODER} if cs_pkg == "port"
-              else {"native_data_plane": False, "encoder_name": "cpu"})
+        kw = ({"encoder": ENCODER} if cs_pkg == "port" else {"encoder_name": "cpu"})
         cs = mod(cs_pkg, "chunkserver.server").ChunkServer(
             str(folder), master_addr=("127.0.0.1", master_port or self.master.port),
-            wave_timeout=0.2, **kw)
+            host=self.cs_host, wave_timeout=0.2, native_data_plane=self.native_data_plane, **kw)
         await cs.start()
         self.chunkservers.append(cs)
         return cs

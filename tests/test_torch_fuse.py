@@ -2,11 +2,10 @@
 the CPU.
 
 * Source: ``client/masterproxy.py`` is a verbatim copy (the package name
-  changed in imports). ``client/fuse_mount.py`` differs only where the
-  native read pool went (its construction, its branch in ``read`` and
-  its close after ``fuse_main_real``) and in ``LizardFuse``'s
-  ``encoder`` keyword, which it hands to its ``Client``; the ctypes
-  layer, ``mount()`` and ``main()`` are the reference's.
+  changed in imports). ``client/fuse_mount.py`` differs only in
+  ``LizardFuse``'s ``encoder`` keyword, which it hands to its
+  ``Client``; the native read pool, the ctypes layer, ``mount()`` and
+  ``main()`` are the reference's.
 * Operations: a port cluster with a port ``LizardFuse`` (its client on
   ``CudaChunkEncoder(device="cpu")``) and a JAX cluster with the JAX
   ``LizardFuse`` are driven through the same ctypes callbacks, called
@@ -29,8 +28,9 @@ the CPU.
   ``main()`` with its client on the CPU, skipped where the host has no
   ``/dev/fuse`` or the mount does not come up.
 
-The JAX mount's native read pool is set aside (its C client), as the
-port has none.
+Both mounts' native read pools (the C client) are set aside here, so
+that both read through their planner path; the pool is compared in
+``tests/test_torch_native_read_pool.py``.
 """
 
 import asyncio
@@ -58,8 +58,9 @@ _REFERENCE: dict = {}
 
 @pytest.fixture(autouse=True)
 def no_native_reads(monkeypatch):
-    """The JAX mount's native read pool (its C client) set aside."""
+    """Both mounts' native read pools (the C client) set aside."""
     monkeypatch.setattr(ref_native_client, "_lib", None)
+    monkeypatch.setattr(mod("port", "client.native_client"), "_lib", None)
 
 
 def test_master_proxy_is_a_copy():
@@ -67,35 +68,17 @@ def test_master_proxy_is_a_copy():
 
 
 def test_mount_departs_only_by_its_native_reads_and_encoder():
+    """The mount is the JAX package's, its native read pool included, but
+    for ``LizardFuse``'s ``encoder`` keyword, which it hands to its
+    ``Client``."""
     removed = [
         "def __init__(self, master_addrs: list[tuple[str, int]]):",
         'self.client = Client("", 0, master_addrs=master_addrs)',
-        "# direct C read path: libfuse callback threads call liz_read",
-        "# without a hop through the asyncio loop (latency path; see",
-        "# client/native_client.py)",
-        "from lizardfs_tpu_torch.client import native_client", "",
-        "self._native_reads = (", "native_client.NativeReadPool(",
-        "lambda: self.client.current_master_addr", ")",
-        "if native_client.available() else None", ")",
-        "data = None",
-        "# the native pool cannot classify callers or pace, so it",
-        "# stands down while ANY cluster IO limit is active — every",
-        "# byte must pass the client's group throttle",
-        "if (", "self._native_reads is not None", "and not self.client.io_limits_active", "):",
-        "data = self._native_reads.read(inode, offset, size)",
-        "if data is None:  # striped/degraded or pool busy: planner path",
-        "data = self._run(self.client.read_file(inode, offset, size))",
-        "try:", "return lib.fuse_main_real(",
-        "len(argv_list), argv, ctypes.byref(ops), ctypes.sizeof(ops), None", ")",
-        "finally:", "if bridge._native_reads is not None:", "bridge._native_reads.close()",
     ]
     added = [
         "def __init__(self, master_addrs: list[tuple[str, int]], encoder=None):",
         "# encoder None: the client's default, the card's encoder",
         'self.client = Client("", 0, master_addrs=master_addrs, encoder=encoder)',
-        "data = self._run(self.client.read_file(inode, offset, size))",
-        "return lib.fuse_main_real(",
-        "len(argv_list), argv, ctypes.byref(ops), ctypes.sizeof(ops), None", ")",
     ]
     assert_departs("client/fuse_mount.py", removed, added)
 

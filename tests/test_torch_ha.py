@@ -94,7 +94,8 @@ def shadow_of(root, active, name="m2", **kw):
 
 
 def chunkserver(root, name, addrs, **kw):
-    return ChunkServer(str(root / name), master_addr=addrs, encoder=ENCODER, **kw)
+    return ChunkServer(str(root / name), master_addr=addrs, encoder=ENCODER,
+                       native_data_plane=False, **kw)
 
 
 def client(*addrs, **kw):

@@ -3,8 +3,9 @@
 * Source: ``nfs/xdr.py``, ``rpc.py``, ``client.py`` and ``__init__.py``
   are verbatim copies (the package name changed in imports);
   ``nfs/server.py`` differs only in the gateway's ``encoder`` keyword,
-  which it hands to its ``Client``. The native C client binding
-  (``nfs/cnfs.py``) is not ported.
+  which it hands to its ``Client``. The native C NFSv3 client
+  (``nfs/cnfs.py``) is pinned and driven in
+  ``tests/test_torch_native_fast_paths.py``.
 * Scenario: a port cluster with the port's gateway (its client on
   ``CudaChunkEncoder(device="cpu")``) and a JAX cluster with the JAX
   gateway run the same seeded NFS3 session on one seed: MNT, FSINFO,

@@ -8,7 +8,11 @@ written over the network and read back, a write chain relayed through
 servers of both packages, and a degraded ec(3,2) read with one server
 stopped (its connect is refused, so the plan's next wave runs at once).
 Port servers compute on ``CudaChunkEncoder(device="cpu")``, the kernels'
-plain versions; the JAX servers serve through their asyncio path.
+plain versions; the servers of both packages serve through their asyncio
+path, and the port's executor reads through its asyncio exchange (its
+native one set aside; the native plane is compared in
+``tests/test_torch_native_*.py``). ``core/read_executor.py`` is a
+verbatim copy (the package name changed in imports).
 """
 
 import asyncio
@@ -27,20 +31,22 @@ from lizardfs_tpu.proto import framing as ref_framing
 from lizardfs_tpu.proto import messages as ref_m
 from lizardfs_tpu_torch.chunkserver import server as port_server
 from lizardfs_tpu_torch.constants import MFSBLOCKSIZE
-from lizardfs_tpu_torch.core import conn_pool, geometry, plans, read_executor
+from lizardfs_tpu_torch.core import conn_pool, geometry, native_io, plans, read_executor
 from lizardfs_tpu_torch.core.encoder import CudaChunkEncoder
 from lizardfs_tpu_torch.ops import crc32
 from lizardfs_tpu_torch.proto import framing
 from lizardfs_tpu_torch.proto import messages as m
 from lizardfs_tpu_torch.proto import status as st
 from lizardfs_tpu_torch.utils import striping
+from tests.test_torch_master import assert_copy
 
 ENCODER = CudaChunkEncoder(device="cpu")
 PKG = {
     "port": SimpleNamespace(
         framing=framing, m=m, executor=read_executor, plans=plans, geometry=geometry,
         encoder=ENCODER,
-        server=lambda root: port_server.ChunkServer(root, master_addr=None, encoder=ENCODER),
+        server=lambda root: port_server.ChunkServer(
+            root, master_addr=None, encoder=ENCODER, native_data_plane=False),
     ),
     "jax": SimpleNamespace(
         framing=ref_framing, m=ref_m, executor=ref_executor, plans=ref_plans,
@@ -50,6 +56,16 @@ PKG = {
     ),
 }
 OTHER = {"port": "jax", "jax": "port"}
+
+
+@pytest.fixture(autouse=True)
+def asyncio_port_executor(monkeypatch):
+    """The port executor's native read exchange set aside."""
+    monkeypatch.setattr(native_io, "_lib", None)
+
+
+def test_executor_is_a_copy():
+    assert_copy("core/read_executor.py")
 
 
 @contextlib.asynccontextmanager
