@@ -50,8 +50,8 @@ from lizardfs_tpu_torch.proto import status as st
 from lizardfs_tpu_torch.utils import data_generator, striping
 from tests.test_torch_client import GOALS, Cluster, two_threads  # noqa: F401 (autouse fixture)
 from tests.test_torch_master import assert_departs, mod
-from tests.test_torch_native_serve import (  # noqa: F401 (autouse fixture)
-    jax_native_library, run_native)
+from tests.test_torch_native_serve import (  # noqa: F401 (autouse fixtures)
+    jax_native_library, native_threads_released, run_native)
 
 B = MFSBLOCKSIZE
 MiB = 1 << 20

@@ -26,7 +26,8 @@ from lizardfs_tpu_torch.client import native_client
 from tests.test_torch_client import GOALS, Cluster, payload, two_threads  # noqa: F401
 from tests.test_torch_fuse import Mount
 from tests.test_torch_native_serve import (  # noqa: F401 (autouse fixtures)
-    CountingEncoder, jax_native_library, no_abstract_listeners, run_native)
+    CountingEncoder, jax_native_library, native_threads_released, no_abstract_listeners,
+    run_native)
 
 
 def read_ops(cluster) -> int:

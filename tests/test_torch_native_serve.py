@@ -32,7 +32,8 @@ imported: its own ``make -C native`` build where that existed then, else
 the port's build of the same sources. Every case here runs with
 ``LZ_NO_UDS=1``, so that no listener binds an abstract unix name on the
 shared host, in process on ephemeral ports, polls with bounds of a few
-seconds and stops every listener.
+seconds and stops every listener; each native module's file shuts both
+packages' native-IO thread pools down when it ends.
 """
 
 import asyncio
@@ -43,6 +44,7 @@ import re
 import stat
 import threading
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -84,6 +86,23 @@ def jax_native_library(monkeypatch):
 def no_abstract_listeners(monkeypatch):
     """No listener binds ``@lzfs-data-<host>-<port>`` on the shared host."""
     monkeypatch.setenv("LZ_NO_UDS", "1")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def native_threads_released():
+    """Both packages' native-IO thread pools, which a native chunkserver
+    or client fills up front (48 threads each), are shut down after the
+    module and replaced by fresh pools that start their threads lazily:
+    a worker that runs a later file keeps no idle threads from here (a
+    sampling profiler's cost per sample grows with the threads it walks)."""
+    yield
+    for io in (native_io, ref_native_io):
+        for name in ("EXECUTOR", "SERVE_EXECUTOR"):
+            old = getattr(io, name)
+            setattr(io, name, ThreadPoolExecutor(max_workers=old._max_workers,
+                                                 thread_name_prefix=old._thread_name_prefix))
+            old.shutdown(wait=True)
+        io._prestarted = False
 
 
 def close_native_pools() -> None:
