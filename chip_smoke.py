@@ -681,13 +681,14 @@ def build_native() -> dict:
     """Builds the native data plane's two libraries (``core/native.py``:
     g++ from ``native/``); a failed build fails with a message that says
     so. Returns each library's file name and build seconds."""
-    from lizardfs_tpu_torch.core import native
-
     out = {}
     try:
+        t = time.perf_counter()
+        from lizardfs_tpu_torch.core import native  # loading it builds the data plane
+
         for name in (native.DATA_PLANE, native.CLIENT):
-            t = time.perf_counter()
             out[name] = {"path": native.build(name).name, "s": time.perf_counter() - t}
+            t = time.perf_counter()
     except RuntimeError as exc:
         raise RuntimeError(f"the native data plane did not build: {exc}") from exc
     return out

@@ -42,6 +42,7 @@ from lizardfs_tpu_torch.runtime import faults
 from lizardfs_tpu_torch.utils import striping
 from tests.test_cluster import make_goals
 from tests.test_torch_master import assert_departs
+from tests.test_torch_native_serve import NATIVE_HOST
 from tests.test_torch_read_executor import (  # noqa: F401 (autouse fixture)
     ENCODER, PKG, addr, asyncio_port_executor, running, seeded, write_part)
 
@@ -72,8 +73,10 @@ def test_entry_point_starts_the_native_data_plane(tmp_path, monkeypatch, setting
     master on an ephemeral port): the listener is up, on its own port,
     exactly when the key says so."""
     cfg = tmp_path / "cs.cfg"
-    cfg.write_text(f"DATA_PATH = {tmp_path / 'data'}\nENCODER = cpu\n{setting}")
-    monkeypatch.setenv("LZ_NO_UDS", "1")  # no abstract listener on the shared host
+    # a loopback address other than 127.0.0.1, whose abstract listener
+    # names a JAX process test scans for (tests/test_torch_native_serve.py)
+    cfg.write_text(f"DATA_PATH = {tmp_path / 'data'}\nENCODER = cpu\nLISTEN_HOST = {NATIVE_HOST}\n"
+                   f"{setting}")
     seen = {}
 
     async def start_and_stop(self):

@@ -21,11 +21,11 @@
   ``ShmInit`` is refused; the allocator's rollback.
 * The C NFSv3 client (``nfs/cnfs.py``) drives either package's gateway.
 
-Cases that are not about the ring run with ``LZ_NO_UDS=1``; the ring's
-cases advertise their chunkservers as ``localhost`` and run asyncio
-chunkservers, so no case binds an abstract unix name
-(``@lzfs-data-127.0.0.1-<port>``) on the shared host. The ring through
-the native listener, which rides that name, runs on the card
+No case binds the abstract unix name ``@lzfs-data-127.0.0.1-<port>`` on
+the shared host: native chunkservers listen on ``NATIVE_HOST``
+(``tests/test_torch_native_serve.py``), and the ring's cases run asyncio
+chunkservers advertised as ``localhost``. The ring through the native
+listener, which rides that name's unix socket, runs on the card
 (``chip_smoke.py``).
 """
 
@@ -51,16 +51,11 @@ from lizardfs_tpu_torch.utils import data_generator, striping
 from tests.test_torch_client import GOALS, Cluster, two_threads  # noqa: F401 (autouse fixture)
 from tests.test_torch_master import assert_departs, mod
 from tests.test_torch_native_serve import (  # noqa: F401 (autouse fixtures)
-    jax_native_library, native_threads_released, run_native)
+    NATIVE_HOST, jax_native_library, native_threads_released, run_native)
 
 B = MFSBLOCKSIZE
 MiB = 1 << 20
 EC_GOAL = GOALS["ec32"]
-
-
-@pytest.fixture
-def no_uds(monkeypatch):
-    monkeypatch.setenv("LZ_NO_UDS", "1")
 
 
 # --- the stripe helpers -----------------------------------------------------------
@@ -157,7 +152,7 @@ def test_stripe_scatter_reused_buffer_tail_zeroed():
 
 
 def native_cluster(tmp_path, n_cs=6, **kw):
-    return Cluster(tmp_path, n_cs=n_cs, native_data_plane=True, **kw)
+    return Cluster(tmp_path, n_cs=n_cs, native_data_plane=True, cs_host=NATIVE_HOST, **kw)
 
 
 async def write_ec_file(cluster, nbytes=6 * MiB, seed=3, name="stripe.bin", goal=EC_GOAL):
@@ -169,7 +164,7 @@ async def write_ec_file(cluster, nbytes=6 * MiB, seed=3, name="stripe.bin", goal
     return c, f, data
 
 
-def test_stripe_gather_failure_falls_back_to_waves(tmp_path, monkeypatch, no_uds):
+def test_stripe_gather_failure_falls_back_to_waves(tmp_path, monkeypatch):
     async def scenario():
         cluster = native_cluster(tmp_path)
         await cluster.start()
@@ -191,7 +186,7 @@ def test_stripe_gather_failure_falls_back_to_waves(tmp_path, monkeypatch, no_uds
     run_native(scenario())
 
 
-def test_stripe_gather_cs_death_still_reads(tmp_path, no_uds):
+def test_stripe_gather_cs_death_still_reads(tmp_path):
     async def scenario():
         cluster = native_cluster(tmp_path)
         await cluster.start(health_interval=30.0)  # no repair: raw recovery
@@ -228,7 +223,7 @@ async def stalled_server():
     return server, server.sockets[0].getsockname()[1], stalled, teardown
 
 
-def test_abort_parts_gather_quiesces_buffer(no_uds):
+def test_abort_parts_gather_quiesces_buffer():
     """The abort unblocks the gather's thread promptly, and nothing
     writes the destination after the caller resumes."""
 
@@ -258,7 +253,7 @@ def test_abort_parts_gather_quiesces_buffer(no_uds):
     run_native(scenario())
 
 
-def test_abort_before_dial_refuses_cleanly(no_uds):
+def test_abort_before_dial_refuses_cleanly():
     out = np.full(3 * B, 0x77, dtype=np.uint8)
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
@@ -277,7 +272,7 @@ def test_abort_before_dial_refuses_cleanly(no_uds):
 # --- parts scatter write ----------------------------------------------------------
 
 
-def test_parts_scatter_write_failure_falls_back(tmp_path, monkeypatch, no_uds):
+def test_parts_scatter_write_failure_falls_back(tmp_path, monkeypatch):
     async def scenario():
         cluster = native_cluster(tmp_path)
         await cluster.start()
@@ -297,7 +292,7 @@ def test_parts_scatter_write_failure_falls_back(tmp_path, monkeypatch, no_uds):
     run_native(scenario())
 
 
-def test_parts_scatter_skips_chained_copies(tmp_path, no_uds):
+def test_parts_scatter_skips_chained_copies(tmp_path):
     async def scenario():
         cluster = native_cluster(tmp_path, n_cs=4)
         await cluster.start()
@@ -314,7 +309,7 @@ def test_parts_scatter_skips_chained_copies(tmp_path, no_uds):
     run_native(scenario())
 
 
-def test_abort_write_scatter_unblocks_thread(no_uds):
+def test_abort_write_scatter_unblocks_thread():
     async def scenario():
         server, port, stalled, teardown = await stalled_server()
         try:
@@ -338,7 +333,7 @@ def test_abort_write_scatter_unblocks_thread(no_uds):
     run_native(scenario())
 
 
-def test_cancelled_striped_write_does_not_pool_staging(tmp_path, monkeypatch, no_uds):
+def test_cancelled_striped_write_does_not_pool_staging(tmp_path, monkeypatch):
     """A full-chunk write pools its staging buffer; a cancelled one whose
     sender may still run pools nothing and aborts the sender. At xor3,
     whose parity is a cheap XOR on the CPU: the staging is the same as at
@@ -500,7 +495,7 @@ def test_shm_ring_segments_released_on_session_teardown(tmp_path):
     run_native(scenario())
 
 
-def test_shm_ring_asyncio_fallback_demux(tmp_path, no_uds):
+def test_shm_ring_asyncio_fallback_demux(tmp_path):
     """Descriptor frames sent by hand to a port asyncio chunkserver: the
     ``ShmInit`` maps the memfd, the ``ShmWritePart`` lands the bytes with
     their CRCs, and the client reads them back."""
@@ -550,7 +545,7 @@ def test_shm_ring_asyncio_fallback_demux(tmp_path, no_uds):
     run_native(scenario())
 
 
-def test_shm_init_refused_for_remote_peers(tmp_path, no_uds):
+def test_shm_init_refused_for_remote_peers(tmp_path):
     """A ``ShmInit`` from a non-loopback peer is refused and maps
     nothing."""
 
@@ -622,7 +617,7 @@ def test_shm_ring_unalloc_rollback_does_not_overlap_live_regions():
 
 
 @pytest.mark.parametrize("pkg", ["port", "jax"])
-def test_c_nfs_client_roundtrip(tmp_path, pkg, no_uds):
+def test_c_nfs_client_roundtrip(tmp_path, pkg):
     """The port's C NFSv3 client writes, commits, looks up and reads a
     file through either package's gateway."""
     from lizardfs_tpu_torch.nfs import cnfs

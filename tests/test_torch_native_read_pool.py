@@ -11,8 +11,9 @@ built from ``native/``) on the CPU.
   bytes are the file's), and a degraded ec(3,2) read falls back to its
   client's planner path, which recovers the lost part on the encoder.
 
-Every case runs with ``LZ_NO_UDS=1``, in process on ephemeral ports, and
-closes every pool and listener.
+Native chunkservers listen on ``NATIVE_HOST``
+(``tests/test_torch_native_serve.py``); every case runs in process on
+ephemeral ports and closes every pool and listener.
 """
 
 import asyncio
@@ -26,8 +27,7 @@ from lizardfs_tpu_torch.client import native_client
 from tests.test_torch_client import GOALS, Cluster, payload, two_threads  # noqa: F401
 from tests.test_torch_fuse import Mount
 from tests.test_torch_native_serve import (  # noqa: F401 (autouse fixtures)
-    CountingEncoder, jax_native_library, native_threads_released, no_abstract_listeners,
-    run_native)
+    NATIVE_HOST, CountingEncoder, jax_native_library, native_threads_released, run_native)
 
 
 def read_ops(cluster) -> int:
@@ -39,7 +39,7 @@ def read_ops(cluster) -> int:
 def test_native_pool_reads_and_fallback(tmp_path, servers):
     async def scenario():
         cluster = Cluster(tmp_path, master=servers, servers=servers, client="port", n_cs=6,
-                          native_data_plane=True)
+                          native_data_plane=True, cs_host=NATIVE_HOST)
         await cluster.start(health_interval=30.0)
         pool = native_client.NativeReadPool(lambda: ("127.0.0.1", cluster.master.port))
         try:
@@ -84,7 +84,7 @@ def test_fuse_reads_through_the_pool_and_falls_back(tmp_path, monkeypatch):
     size = 1 << 20
 
     async def scenario():
-        cluster = Cluster(tmp_path, n_cs=6, native_data_plane=True)
+        cluster = Cluster(tmp_path, n_cs=6, native_data_plane=True, cs_host=NATIVE_HOST)
         await cluster.start(health_interval=30.0)
         mnt = Mount("port", cluster.master.port)
         enc = mnt.fuse.client.encoder = CountingEncoder()

@@ -29,11 +29,11 @@
 
 The JAX package's native modules bind their library when they are
 imported: its own ``make -C native`` build where that existed then, else
-the port's build of the same sources. Every case here runs with
-``LZ_NO_UDS=1``, so that no listener binds an abstract unix name on the
-shared host, in process on ephemeral ports, polls with bounds of a few
-seconds and stops every listener; each native module's file shuts both
-packages' native-IO thread pools down when it ends.
+the port's build of the same sources. Native chunkservers listen on
+``NATIVE_HOST``; every case runs in process on ephemeral ports, polls
+with bounds of a few seconds and stops every listener, and each native
+module's file shuts both packages' native-IO thread pools down when it
+ends.
 """
 
 import asyncio
@@ -82,10 +82,14 @@ def jax_native_library(monkeypatch):
             monkeypatch.setattr(ref, "_lib", port._lib)
 
 
-@pytest.fixture(autouse=True)
-def no_abstract_listeners(monkeypatch):
-    """No listener binds ``@lzfs-data-<host>-<port>`` on the shared host."""
-    monkeypatch.setenv("LZ_NO_UDS", "1")
+# The native listener also binds an abstract unix name after the host it
+# advertises, ``@lzfs-data-<host>-<port>``, and the JAX package's process
+# tests take the first such name at 127.0.0.1 that appears on the host.
+# So native chunkservers here listen on another loopback address. Not
+# ``LZ_NO_UDS``: the C side reads it once a process, in a switch both
+# packages' libraries share, so setting it in one test would turn the
+# unix socket off for every later test in the worker.
+NATIVE_HOST = "127.0.0.2"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -239,7 +243,7 @@ def test_failed_build_raises_with_the_compiler_message(tmp_path, monkeypatch):
 
 def port_cluster(tmp_path, client="port", n_cs=1, native_data_plane=True):
     return Cluster(tmp_path, master="port", servers="port", client=client, n_cs=n_cs,
-                   native_data_plane=native_data_plane)
+                   native_data_plane=native_data_plane, cs_host=NATIVE_HOST)
 
 
 CLIENTS = ["port", "jax"]
@@ -339,7 +343,7 @@ def test_read_pipelined_behind_write_does_not_interleave(tmp_path):
         await cluster.start()
         try:
             cs = cluster.chunkservers[0]
-            reader, writer = await asyncio.open_connection("127.0.0.1", cs.data_server.port)
+            reader, writer = await asyncio.open_connection(NATIVE_HOST, cs.data_server.port)
             framing.write_message(writer, m.CltocsWriteInit(
                 req_id=1, chunk_id=7, version=1, part_id=0, chain=[], create=True))
             await writer.drain()
@@ -483,7 +487,7 @@ def asyncio_plane():
 
 async def mixed_scenario(root: Path, servers: str, client: str, plane: bool) -> dict:
     cluster = Cluster(root, master=servers, servers=servers, client=client, n_cs=6,
-                      native_data_plane=plane)
+                      native_data_plane=plane, cs_host=NATIVE_HOST)
     await cluster.start(health_interval=30.0)  # no rebuild: raw degraded reads
     try:
         enc = CountingEncoder() if client == "port" else RefCpuChunkEncoder()
