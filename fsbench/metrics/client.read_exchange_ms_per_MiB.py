@@ -1,0 +1,9 @@
+"""The native exchange with the chunkservers itself, in its executor
+thread, per MiB read: ``read_phases`` ``net_run``."""
+
+from fsbench import readings
+
+
+def read(w):
+    ms = w.read_phases.get("net_run_ms")
+    return None if ms is None else readings.per_mib(ms, readings.bytes_done(w, "read"))

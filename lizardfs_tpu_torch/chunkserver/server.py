@@ -623,12 +623,15 @@ class ChunkServer(Daemon):
         except Exception:  # noqa: BLE001 — tracing must never hurt serving
             self.log.debug("native trace drain failed", exc_info=True)
             return
+        # the C side stamps CLOCK_REALTIME; spans run on perf_counter
+        shift = time.perf_counter() - time.time()
         for op in ops:
             # queue_us (lz_serve_trace3): QoS pacing wait inside the op
             # — the attribution engine splits the span's head into a
             # "queue" sub-interval so native backpressure is visible
             self.trace_ring.record(
-                op["trace_id"], op["name"], op["t0"], op["t1"],
+                op["trace_id"], op["name"], op["t0"] + shift,
+                op["t1"] + shift,
                 role="chunkserver", bytes=op["bytes"],
                 disk_us=op["disk_us"], net_us=op["net_us"],
                 queue_us=op.get("queue_us", 0),
@@ -935,7 +938,6 @@ class ChunkServer(Daemon):
 
     async def _cmd_replicate(self, msg: m.MatocsReplicate):
         t0 = time.perf_counter()
-        tw0 = time.time()
         # join the RebuildEngine's per-rebuild trace: the source reads
         # this replica issues carry the id into the peers' span rings,
         # and this executor span merges with the master's scheduler
@@ -953,7 +955,7 @@ class ChunkServer(Daemon):
         finally:
             tracing.clear_trace()
         self.trace_ring.record(
-            tid, "cs_replicate", tw0, time.time(), role="chunkserver",
+            tid, "cs_replicate", t0, time.perf_counter(), role="chunkserver",
             chunk_id=msg.chunk_id,
         )
         self.slo.observe(
@@ -1076,16 +1078,16 @@ class ChunkServer(Daemon):
                     # native streaming needs exclusive use of the socket;
                     # in-flight pipelined writes still owe status frames
                     t0 = time.perf_counter()
-                    tw0 = time.time()
                     await self._debug_read_delay()
                     await self._serve_read(
                         writer, msg,
                         native_ok=not sessions and not pending_writes,
                     )
-                    dt = time.perf_counter() - t0
+                    t1 = time.perf_counter()
+                    dt = t1 - t0
                     self.metrics.timing("read").record(dt)
                     self.trace_ring.record(
-                        msg.trace_id, "cs_read", tw0, time.time(),
+                        msg.trace_id, "cs_read", t0, t1,
                         role="chunkserver", bytes=msg.size,
                     )
                     self.slo.observe(
@@ -1098,13 +1100,13 @@ class ChunkServer(Daemon):
                     self._heat_charge(msg.chunk_id, msg.size)
                 elif isinstance(msg, m.CltocsReadBulk):
                     t0 = time.perf_counter()
-                    tw0 = time.time()
                     await self._debug_read_delay()
                     await self._serve_read_bulk(writer, msg)
-                    dt = time.perf_counter() - t0
+                    t1 = time.perf_counter()
+                    dt = t1 - t0
                     self.metrics.timing("read_bulk").record(dt)
                     self.trace_ring.record(
-                        msg.trace_id, "cs_read_bulk", tw0, time.time(),
+                        msg.trace_id, "cs_read_bulk", t0, t1,
                         role="chunkserver", bytes=msg.size,
                     )
                     self.slo.observe(
@@ -1259,7 +1261,6 @@ class ChunkServer(Daemon):
         ):
             await ack(st.EINVAL)
             return
-        tw0 = time.time()
         t0 = time.perf_counter()
         data = bytes(mm[msg.ring_off : msg.ring_off + msg.length])
 
@@ -1292,11 +1293,12 @@ class ChunkServer(Daemon):
             help="part writes landed from shm ring descriptors "
                  "(asyncio data plane)",
         ).inc()
+        t1 = time.perf_counter()
         self.trace_ring.record(
-            session.trace_id, "cs_write_shm", tw0, time.time(),
+            session.trace_id, "cs_write_shm", t0, t1,
             role="chunkserver", bytes=msg.length,
         )
-        dt = time.perf_counter() - t0
+        dt = t1 - t0
         self.slo.observe(
             "write", dt, trace_id=session.trace_id, name="cs_write_shm"
         )
@@ -1791,8 +1793,7 @@ class ChunkServer(Daemon):
         if session is None or msg.part_offset % MFSBLOCKSIZE != 0:
             await ack(st.EINVAL)
             return
-        tw0 = time.time()
-        t0 = time.perf_counter()  # monotonic twin of tw0 for the SLO
+        t0 = time.perf_counter()
         down_ok = st.OK
         down_ev = None
         if session.downstream is not None:
@@ -1846,11 +1847,12 @@ class ChunkServer(Daemon):
                 code = down_ok
             session.down_event.pop(msg.write_id, None)
             session.down_status.pop(msg.write_id, None)
+        t1 = time.perf_counter()
         self.trace_ring.record(
-            session.trace_id, "cs_write_bulk", tw0, time.time(),
+            session.trace_id, "cs_write_bulk", t0, t1,
             role="chunkserver", bytes=len(msg.data),
         )
-        dt = time.perf_counter() - t0
+        dt = t1 - t0
         self.slo.observe(
             "write", dt, trace_id=session.trace_id, name="cs_write_bulk"
         )

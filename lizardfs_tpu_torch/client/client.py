@@ -222,12 +222,13 @@ class Client:
         # locate (master RPC), dial (pool-miss connects), wait (QoS
         # throttle + retry backoff + shed waits), net (socket transfer,
         # incl. the native gather call), decode (plan postprocess /
-        # EC recovery), gather (stripe de-interleave). Deep layers that
-        # can't see the client (conn pool, read executor) charge via
-        # tracing.PHASE_SINK, activated around each logical read.
+        # EC recovery), gather (stripe de-interleave), and the parts
+        # of these that tracing.READ_SUBPHASES names. Deep layers that
+        # can't see the client (conn pool, read executor, encoder seam)
+        # charge via tracing.PHASE_SINK, activated around each logical
+        # read.
         self.read_phases = PhaseBreakdown(
-            "client_read",
-            ("locate", "dial", "wait", "net", "decode", "gather"),
+            "client_read", tracing.READ_PHASES + tracing.READ_SUBPHASES,
         )
         # request-scoped span ring (runtime/tracing.py): phase charges
         # double as client-role spans when the op runs under a trace;
@@ -357,13 +358,13 @@ class Client:
         deliberately excluded from the send phase (charging pacing as
         transfer time would misattribute), so without a span of their
         own they would be an anonymous hole in every merged timeline."""
-        tw0 = _time.time()
+        t0 = _time.perf_counter()
         try:
             await self._throttle_inner(nbytes)
         finally:
             self.trace_ring.record(
-                tracing.current_trace_id(), "throttle", tw0, _time.time(),
-                role="client",
+                tracing.current_trace_id(), "throttle", t0,
+                _time.perf_counter(), role="client",
             )
 
     async def _throttle_inner(self, nbytes: int) -> None:
@@ -521,38 +522,35 @@ class Client:
                 last = e
         raise ConnectionError(f"no active master reachable: {last}")
 
-    def _t0(self) -> tuple[float, float]:
-        """(perf_counter, wall) pair opening a phase: the first feeds
-        the PhaseBreakdown, the second anchors the span's timeline."""
-        return (_time.perf_counter(), _time.time())
+    def _t0(self) -> float:
+        """``perf_counter`` stamp opening a phase: it feeds the
+        PhaseBreakdown and anchors the span's timeline."""
+        return _time.perf_counter()
 
-    def _phase(self, name: str, t0: tuple[float, float]) -> None:
+    def _phase(self, name: str, t0: float) -> None:
         """Charge a write phase and, when the op runs under a trace,
         record the same interval as a client-role span."""
-        self.write_phases.add(name, _time.perf_counter() - t0[0])
+        t1 = _time.perf_counter()
+        self.write_phases.add(name, t1 - t0)
         self.trace_ring.record(
-            tracing.current_trace_id(), name, t0[1], _time.time(),
-            role="client",
+            tracing.current_trace_id(), name, t0, t1, role="client",
         )
 
-    def _read_phase(self, name: str, t0: tuple[float, float]) -> None:
+    def _read_phase(self, name: str, t0: float) -> None:
         """Charge a read phase (+ client-role span under a trace)."""
-        self.read_phases.add(name, _time.perf_counter() - t0[0])
-        self.trace_ring.record(
-            tracing.current_trace_id(), f"read:{name}", t0[1], _time.time(),
-            role="client",
-        )
+        self._read_sink(name, t0, _time.perf_counter())
 
-    def _read_sink(self, phase: str, t0, t1) -> None:
+    def _read_sink(self, phase: str, t0: float, t1: float) -> None:
         """tracing.PHASE_SINK target: layers below the client (connection
-        pool dials, read-executor socket waits and plan postprocess)
-        charge the ambient logical read's phases here. Pool-miss dials
-        double as the ``dial`` queue-wait gate."""
-        self.read_phases.add(phase, max(t1[0] - t0[0], 0.0))
+        pool dials, read-executor socket waits and plan postprocess,
+        off-loop hops, the encoder seam) charge the ambient logical
+        read's phases here. Pool-miss dials double as the ``dial``
+        queue-wait gate."""
+        self.read_phases.add(phase, max(t1 - t0, 0.0))
         tid = tracing.current_trace_id()
         if tid:
             self.trace_ring.record(
-                tid, f"read:{phase}", t0[1], t1[1], role="client"
+                tid, f"read:{phase}", t0, t1, role="client"
             )
         if phase == "dial":
             # ring=None: the read:dial span above already lands in the
@@ -1391,7 +1389,6 @@ class Client:
         # and a trace WE started is cleared on the way out so the next
         # op in this task gets its own id
         tid, fresh_trace = tracing.begin()
-        tw0 = _time.time()
         try:
             # every chunk task spawned below copies this context — the
             # native scatter path reads the session from it in-task
@@ -1399,7 +1396,7 @@ class Client:
             session_ctx.__enter__()
             old_length = (await self.getattr(inode)).length
             self.trace_ring.record(
-                tid, "getattr", tw0, _time.time(), role="client"
+                tid, "getattr", wall_t0, _time.perf_counter(), role="client"
             )
             # a small in-flight window pipelines chunk N+1's grant +
             # transfer behind chunk N's tail (write_cache_window
@@ -1459,16 +1456,17 @@ class Client:
                         )
             if old_length > total:
                 await self.truncate(inode, total)
-            self.write_phases.add_wall(_time.perf_counter() - wall_t0)
+            wall_t1 = _time.perf_counter()
+            self.write_phases.add_wall(wall_t1 - wall_t0)
             self.trace_ring.record(
-                tid, "write_file", tw0, _time.time(), role="client",
+                tid, "write_file", wall_t0, wall_t1, role="client",
                 bytes=total,
             )
             # ONE logical write == ONE accounting record, regardless of
             # how many transient retries the chunks above burned
             self.session_ops.record(
-                self.session_id, "write",
-                _time.perf_counter() - wall_t0, nbytes=total, trace_id=tid,
+                self.session_id, "write", wall_t1 - wall_t0, nbytes=total,
+                trace_id=tid,
             )
         finally:
             # manual __enter__/__exit__ pair: the session scope must
@@ -1491,7 +1489,6 @@ class Client:
             return
         wall_t0 = _time.perf_counter()
         tid, fresh_trace = tracing.begin()
-        tw0 = _time.time()
         try:
             # session scope for the RMW read-backs + native write path
             # (paired __exit__ in the finally, as in write_file)
@@ -1513,17 +1510,17 @@ class Client:
             # the RMW path charges encode/send phases above — close the
             # rep so phase sums stay attributable against wall time for
             # pwrite-heavy workloads too
-            self.write_phases.add_wall(_time.perf_counter() - wall_t0)
+            wall_t1 = _time.perf_counter()
+            self.write_phases.add_wall(wall_t1 - wall_t0)
             self.trace_ring.record(
-                tid, "pwrite", tw0, _time.time(), role="client",
+                tid, "pwrite", wall_t0, wall_t1, role="client",
                 bytes=len(data),
             )
             # one logical pwrite counts once — RMW retries inside
             # _pwrite_chunk are implementation detail
             self.session_ops.record(
-                self.session_id, "write",
-                _time.perf_counter() - wall_t0, nbytes=len(data),
-                trace_id=tid,
+                self.session_id, "write", wall_t1 - wall_t0,
+                nbytes=len(data), trace_id=tid,
             )
         finally:
             session_ctx.__exit__(None, None, None)
@@ -2301,7 +2298,7 @@ class Client:
                 except BaseException:
                     session.ring_unstage(wid)
                     raise
-                enc_dt = _time.perf_counter() - t0[0]
+                enc_dt = _time.perf_counter() - t0
                 self._phase("encode", t0)
                 payloads = seg_payloads(a, b)
                 if views is not None:
@@ -2345,7 +2342,7 @@ class Client:
                         session.send_segment_window, payloads, lengths,
                         a, wid,
                     )
-                    send_dt = _time.perf_counter() - t0[0]
+                    send_dt = _time.perf_counter() - t0
                     self._phase("send", t0)
                 except BaseException:
                     win.release(session.unique_addrs, seg_bytes)
@@ -2421,7 +2418,7 @@ class Client:
             # measuring the copy the shm ring exists to eliminate; the
             # depth controller still sees the combined time (ack wait
             # is exactly the send-bound signal that should deepen it)
-            send_dt += _time.perf_counter() - t0[0]
+            send_dt += _time.perf_counter() - t0
             self._phase("ack", t0)
         finally:
             win.release(session.unique_addrs, seg_bytes)
@@ -2566,7 +2563,6 @@ class Client:
 
     async def read_file(self, inode: int, offset: int = 0, size: int | None = None) -> bytes:
         t0 = _time.perf_counter()
-        tw0 = _time.time()
         tid, fresh_trace = tracing.begin()
         # the read-phase sink is scoped to THIS logical read: every
         # locate/dial/wait/net/decode/gather charge below — including
@@ -2582,12 +2578,12 @@ class Client:
             tracing.end(fresh_trace)
         # ONE logical read == ONE accounting record: replica fallbacks
         # and dead-holder retries below this line never double-count
-        dt = _time.perf_counter() - t0
+        t1 = _time.perf_counter()
+        dt = t1 - t0
         self.read_phases.add_wall(dt)
         # root span: the attribution wall anchor (`trace-dump --attribute`)
         self.trace_ring.record(
-            tid, "read_file", tw0, _time.time(), role="client",
-            bytes=len(data),
+            tid, "read_file", t0, t1, role="client", bytes=len(data),
         )
         self.session_ops.record(
             self.session_id, "read", dt, nbytes=len(data), trace_id=tid,
@@ -2653,7 +2649,6 @@ class Client:
         path the network recv lands directly in ``out``. ``out`` must be
         C-contiguous uint8."""
         tid, fresh_trace = tracing.begin()
-        tw0 = _time.time()
         tp0 = _time.perf_counter()
         sink_tok = tracing.PHASE_SINK.set(self._read_sink)
         try:
@@ -2665,13 +2660,13 @@ class Client:
             n = end - offset
             with accounting.task_session(self.session_id):
                 await self._read_into(inode, offset, out[:n], length)
+            tp1 = _time.perf_counter()
             self.trace_ring.record(
-                tid, "read_file", tw0, _time.time(), role="client", bytes=n
+                tid, "read_file", tp0, tp1, role="client", bytes=n
             )
-            self.read_phases.add_wall(_time.perf_counter() - tp0)
+            self.read_phases.add_wall(tp1 - tp0)
             self.session_ops.record(
-                self.session_id, "read", _time.time() - tw0, nbytes=n,
-                trace_id=tid,
+                self.session_id, "read", tp1 - tp0, nbytes=n, trace_id=tid,
             )
             return n
         finally:
@@ -3139,28 +3134,24 @@ class Client:
             and attempt == 0
         ):
             cell: dict = {}
-            fut = asyncio.get_running_loop().run_in_executor(
-                native_io.EXECUTOR,
-                # partial_with_trace: run_in_executor drops context, so
-                # the request trace id rides the partial instead
-                native_io.partial_with_trace(
-                    native_io.read_parts_gather_blocking,
-                    [by_part[p][0] for p in wanted],
-                    loc.chunk_id, loc.version,
-                    [by_part[p][1] for p in wanted],
-                    lo_slot * MFSBLOCKSIZE, region_blocks,
-                    into[into_offset : into_offset + size],
-                    cell,
-                ),
-            )
-            # run_in_executor does not propagate the phase-sink context;
-            # the whole native gather (sockets + C de-interleave) is
-            # timed at the await and charged as net — the chunkserver's
+            # the hop carries the request trace id into the thread
+            # (run_in_executor drops context); the whole native gather
+            # (sockets + C de-interleave) is charged at the await as net
+            # and its queue/run/resume parts — the chunkserver's
             # queue/disk/net attrs refine it in the attribution view
-            t0 = self._t0()
+            hop = native_io.Hop(
+                native_io.EXECUTOR, native_io.read_parts_gather_blocking,
+                [by_part[p][0] for p in wanted],
+                loc.chunk_id, loc.version,
+                [by_part[p][1] for p in wanted],
+                lo_slot * MFSBLOCKSIZE, region_blocks,
+                into[into_offset : into_offset + size],
+                cell,
+            )
+            fut = hop.future
             try:
                 await asyncio.shield(fut)
-                self._read_phase("net", t0)
+                hop.charge("net")
                 for p in wanted:
                     GLOBAL_STATS.record_success(by_part[p][0])
                 # counted so tests/operators can see the fast path is
@@ -3212,17 +3203,13 @@ class Client:
             and into.flags.c_contiguous and into.dtype == np.uint8
         ):
             # zero-copy: de-interleave straight into the caller's buffer
-            t0 = self._t0()
-            await asyncio.to_thread(
-                striping.assemble_chunk, data_parts, slice_type, size,
-                into[into_offset : into_offset + size],
+            await native_io.run_hop(
+                "gather", None, striping.assemble_chunk, data_parts,
+                slice_type, size, into[into_offset : into_offset + size],
             )
-            self._read_phase("gather", t0)
             return None
-        t0 = self._t0()
-        region = await asyncio.to_thread(
-            striping.assemble_chunk, data_parts, slice_type,
+        region = await native_io.run_hop(
+            "gather", None, striping.assemble_chunk, data_parts, slice_type,
             d * bps,  # bytes covered by these stripes
         )
-        self._read_phase("gather", t0)
         return np.asarray(region[rel : rel + size])

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import abc
 import threading
+import time
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ import torch
 from lizardfs_tpu_torch.constants import MFSBLOCKSIZE
 from lizardfs_tpu_torch.ops import crc32, cuda_ec, gf256, rs, torch_ec
 from lizardfs_tpu_torch.parallel import recovery, sharded
+from lizardfs_tpu_torch.runtime import tracing
 
 _MATRIX_CACHE = 256  # device matrices an encoder keeps (oldest dropped first)
 _STEP_CACHE = 64  # mesh rebuild steps a sharded encoder keeps (then cleared)
@@ -150,7 +152,10 @@ class CudaChunkEncoder(ChunkEncoder):
 
     def _stage(self, rows) -> torch.Tensor:
         """Equal-length 1-D byte arrays -> one (len(rows), N) uint8 tensor
-        on the device, copied through a pinned host buffer."""
+        on the device, copied through a pinned host buffer. The time from
+        the empty buffer to the enqueued copy is the ambient read's
+        ``seam_stage`` phase."""
+        t0 = time.perf_counter()
         n = len(rows[0])
         host = torch.empty((len(rows), n), dtype=torch.uint8, pin_memory=self._pinned)
         h = host.numpy()
@@ -158,14 +163,22 @@ class CudaChunkEncoder(ChunkEncoder):
             if len(row) != n:
                 raise ValueError("all parts must have equal size")
             h[i] = row
-        return host.to(self.device, non_blocking=True) if self._pinned else host
+        out = host.to(self.device, non_blocking=True) if self._pinned else host
+        tracing.charge_phase("seam_stage", t0)
+        return out
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
-        if not self._pinned:
-            return t.numpy()
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t)
-        return host.numpy()
+        """``t`` on the host: the host blocks until the card's copy, the
+        kernel before it and the copy back are done, the ambient read's
+        ``seam_sync`` phase."""
+        t0 = time.perf_counter()
+        if self._pinned:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t)
+            t = host
+        out = t.numpy()
+        tracing.charge_phase("seam_sync", t0)
+        return out
 
     def _fetch_crcs(self, t: torch.Tensor) -> np.ndarray:
         return self._fetch(t).view(np.uint32)

@@ -18,6 +18,7 @@ import os
 import socket
 import struct
 import threading
+import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 
@@ -27,7 +28,7 @@ from lizardfs_tpu_torch.core import native as _native_lib
 from lizardfs_tpu_torch.proto import framing
 from lizardfs_tpu_torch.proto import messages as m
 from lizardfs_tpu_torch.proto import status as st
-from lizardfs_tpu_torch.runtime import accounting
+from lizardfs_tpu_torch.runtime import accounting, tracing
 
 # exchanges smaller than this stay on the asyncio path
 NATIVE_READ_THRESHOLD = 128 * 1024
@@ -515,33 +516,61 @@ def serve_slot_release() -> None:
     active_serves -= 1
 
 
-async def run(fn, *args):
-    """Run a blocking native-IO function on the dedicated executor.
+class Hop:
+    """One off-loop hop of a request: ``fn(*args)`` submitted at once to
+    ``executor`` (None: the loop's default) with the caller's trace id
+    AND wire session carried into the thread, captured HERE, in the
+    calling task, because neither contextvars nor the task's session
+    scope reach an executor thread. Four ``perf_counter`` stamps time
+    it: ``submitted`` on the loop, ``started`` and ``returned`` in the
+    thread, and the resume, which :meth:`charge` takes on the loop when
+    the awaiting coroutine runs again. Sites that need the raw future
+    (shield/abort-cell patterns) await ``future`` themselves and call
+    :meth:`charge` once it succeeded."""
 
-    The caller's request trace id (runtime/tracing.py contextvar) is
-    captured HERE — run_in_executor does not carry context into the
-    worker thread — and installed as the C side's thread-local
-    (lz_trace_set) for the duration of the call, so the native request
-    builders tag their frames with the trace of the request they serve."""
-    loop = asyncio.get_running_loop()
-    return await loop.run_in_executor(EXECUTOR, partial_with_trace(fn, *args))
+    __slots__ = ("future", "submitted", "started", "returned")
 
-
-def partial_with_trace(fn, *args):
-    """``functools.partial`` carrying the caller's trace id AND wire
-    session into the executor thread — for call sites that need raw
-    run_in_executor (shield/abort-cell patterns) instead of
-    :func:`run`. Both are captured HERE, in the calling task, because
-    neither contextvars nor the task's session scope reach an executor
-    thread."""
-    from lizardfs_tpu_torch.runtime import tracing
-
-    trace_id = tracing.current_trace_id()
-    if trace_id:
-        return functools.partial(
-            _traced_call, trace_id, accounting.wire_session(), fn, *args
+    def __init__(self, executor, fn, *args):
+        trace_id = tracing.current_trace_id()
+        session = accounting.wire_session() if trace_id else 0
+        self.started = self.returned = 0.0
+        self.submitted = time.perf_counter()
+        self.future = asyncio.get_running_loop().run_in_executor(
+            executor,
+            functools.partial(self._call, trace_id, session, fn, *args),
         )
-    return functools.partial(fn, *args)
+
+    def _call(self, trace_id, session, fn, *args):
+        self.started = time.perf_counter()
+        try:
+            if trace_id:
+                return _traced_call(trace_id, session, fn, *args)
+            return fn(*args)
+        finally:
+            self.returned = time.perf_counter()
+
+    def charge(self, phase: str) -> None:
+        """Charge the finished hop to ``phase`` of the ambient read
+        (runtime/tracing.py :func:`charge_hop`)."""
+        tracing.charge_hop(phase, self.submitted, self.started, self.returned)
+
+
+async def run(fn, *args):
+    """Run a blocking native-IO function on the dedicated executor, with
+    the caller's request trace id installed as the C side's
+    thread-local (lz_trace_set) for the duration of the call, so the
+    native request builders tag their frames with the trace of the
+    request they serve."""
+    return await Hop(EXECUTOR, fn, *args).future
+
+
+async def run_hop(phase: str, executor, fn, *args):
+    """``fn(*args)`` as a :class:`Hop` on ``executor``, charged to the
+    ambient read's ``phase`` when it returns."""
+    hop = Hop(executor, fn, *args)
+    out = await hop.future
+    hop.charge(phase)
+    return out
 
 
 # worker-thread trace id: read by the python-framed handshakes

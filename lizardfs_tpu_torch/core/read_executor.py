@@ -94,24 +94,21 @@ async def read_part_range(
         # retry refills the same region. The cell lets us shut the
         # socket down (killing the thread's recv) and join it.
         cell: dict = {}
-        fut = asyncio.get_running_loop().run_in_executor(
-            native_io.EXECUTOR,
-            # partial_with_trace: carries the request trace id into the
-            # worker thread (plain run_in_executor drops context)
-            native_io.partial_with_trace(
-                native_io.read_part_blocking,
-                addr, chunk_id, version, part_id, offset, size, tmp,
-                cell if scatter_direct else None,
-            ),
+        # the hop carries the request trace id into the worker thread
+        # (plain run_in_executor drops context, the phase sink's too):
+        # the native exchange is charged here as read-phase net and its
+        # queue/run/resume parts (parallel part reads overlap, so net
+        # busy-time may exceed wall — the PhaseBreakdown pipelining
+        # contract)
+        hop = native_io.Hop(
+            native_io.EXECUTOR, native_io.read_part_blocking,
+            addr, chunk_id, version, part_id, offset, size, tmp,
+            cell if scatter_direct else None,
         )
-        # run_in_executor drops the phase-sink context too: the native
-        # exchange is timed here and charged as read-phase net (parallel
-        # part reads overlap, so net busy-time may exceed wall — the
-        # PhaseBreakdown pipelining contract)
-        t0 = tracing.phase_t0()
+        fut = hop.future
         try:
             await asyncio.shield(fut)
-            tracing.charge_phase("net", t0)
+            hop.charge("net")
             GLOBAL_STATS.record_success(addr)
             if not scatter_direct:
                 out[into_offset : into_offset + size] = tmp

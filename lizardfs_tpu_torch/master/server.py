@@ -848,7 +848,6 @@ class MasterServer(Daemon):
                         await framing.send_message(writer, busy)
                         continue
                 t0 = time.perf_counter()
-                tw0 = time.time()
                 try:
                     reply = await self._handle_client(msg, session_id)
                 except fsmod.FsError as e:
@@ -857,13 +856,14 @@ class MasterServer(Daemon):
                     self.log.exception("client op %s failed", type(msg).__name__)
                     reply = self._error_reply(msg, st.EIO)
                 # request_log.h analog: per-op-type latency histograms
-                dt = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                dt = t1 - t0
                 self.metrics.timing(type(msg).__name__).record(dt)
                 # request-scoped tracing: RPCs carrying a trace id land
                 # in the span ring (dumped via admin `trace-dump`)
                 tid = getattr(msg, "trace_id", 0)
                 self.trace_ring.record(
-                    tid, type(msg).__name__, tw0, time.time(), role="master",
+                    tid, type(msg).__name__, t0, t1, role="master",
                 )
                 # per-session accounting: the same op charged to its
                 # originating session (the `top` rollup's master leg)
@@ -3754,7 +3754,6 @@ class MasterServer(Daemon):
         ok = False
         attempted = False
         t0 = time.perf_counter()
-        tw0 = time.time()
         try:
             t = geometry.SliceType(chunk.slice_type)
             holders = {cs for cs, _ in chunk.parts}
@@ -3824,9 +3823,10 @@ class MasterServer(Daemon):
                 # in trace-dump, the replicate SLO class catches slow
                 # rebuilds (flight-recording their timeline), the
                 # engine folds the outcome into progress/ETA
-                dt = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                dt = t1 - t0
                 self.trace_ring.record(
-                    rb.trace_id, "rebuild", tw0, time.time(),
+                    rb.trace_id, "rebuild", t0, t1,
                     role="master", bytes=rb.bytes_est,
                     chunk_id=chunk.chunk_id,
                 )

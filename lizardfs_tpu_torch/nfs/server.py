@@ -676,7 +676,6 @@ class NfsGateway:
         tid, fresh = tracing.begin()
         name = "nfs_" + handler.__name__.removeprefix("_proc_")
         t0 = time.perf_counter()
-        tw0 = time.time()
         try:
             return await handler(self, cred, u)
         except _NfsError as e:
@@ -684,10 +683,9 @@ class NfsGateway:
         except st.StatusError as e:
             return self._plain_error(proc, _nfs_code(e))
         finally:
-            dt = time.perf_counter() - t0
-            self.client.trace_ring.record(
-                tid, name, tw0, time.time(), role="nfs"
-            )
+            t1 = time.perf_counter()
+            dt = t1 - t0
+            self.client.trace_ring.record(tid, name, t0, t1, role="nfs")
             self.slo.observe("nfs", dt, trace_id=tid, name=name)
             # per-session protocol accounting: the proc charged to this
             # gateway's cluster session, pushed to the master's `top`

@@ -255,9 +255,13 @@ class Daemon:
                 # any id listed by `slowops` renders even after the
                 # live span ring moved on
                 spans = self.slo.recorder.incident_spans(trace_id) or []
+            # the spans' perf_counter stamps and the epoch, read
+            # together: a reader merging hosts moves them by it
             return m.AdminReply(
                 req_id=msg.req_id, status=st.OK,
-                json=json.dumps({"spans": spans}),
+                json=json.dumps({
+                    "spans": spans, "anchor": tracing.clock_anchor(),
+                }),
             )
         if command == "profile":
             # collapsed-stack flamegraph dump of the always-on sampling

@@ -28,16 +28,21 @@ Cost contract: with ``LZ_TRACE=0`` no ids are issued,
 single falsy check — the acceptance bound is <1% on the ec(8,4) write
 row.
 
-Clocks: spans carry CLOCK_REALTIME epoch seconds (C side: microseconds
-via clock_gettime) so same-host cross-process merges line up; durations
-inside one process stay monotonic-accurate at the span granularity
-(tens of microseconds and up) this subsystem targets.
+Clocks: spans carry ``time.perf_counter`` seconds, CLOCK_MONOTONIC on
+Linux, which every process on one host shares, so same-host
+cross-process merges line up, and the card's profiler events that a
+benchmark maps onto ``perf_counter`` line up with them too. The native
+plane's CLOCK_REALTIME microsecond stamps are moved onto it when the
+chunkserver drains them. Every ``trace-dump`` reply carries one
+:func:`clock_anchor` pair, with which :func:`to_epoch` turns its spans
+into epoch seconds (merges across hosts).
 """
 
 from __future__ import annotations
 
 import contextvars
-import secrets
+import os
+import random
 import time
 from collections import deque
 
@@ -64,9 +69,22 @@ def set_enabled(on: bool) -> None:
     _ENABLED = bool(on)
 
 
+# ids need to be unique, not secret: one generator per process, seeded
+# once (a child after fork seeds its own), not a syscall per span
+_RNG = random.Random()
+
+
+def _seed_ids() -> None:
+    _RNG.seed(os.urandom(16))
+
+
+_seed_ids()
+os.register_at_fork(after_in_child=_seed_ids)
+
+
 def new_id() -> int:
     # 63-bit nonzero: fits i64/u64 everywhere, 0 stays "untraced"
-    return secrets.randbits(63) | 1
+    return _RNG.getrandbits(63) | 1
 
 
 def current_trace_id() -> int:
@@ -82,12 +100,6 @@ def start_trace() -> int:
     tid = new_id()
     CURRENT.set((tid, 0))
     return tid
-
-
-def ensure_trace() -> int:
-    """Current trace id, starting a fresh trace if none is active."""
-    tid = current_trace_id()
-    return tid if tid else start_trace()
 
 
 def begin() -> tuple[int, bool]:
@@ -205,14 +217,30 @@ class _SpanCtx:
         )
 
     def __enter__(self):
-        self.t0 = time.time()
+        self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self.ring.record(
-            self.trace_id, self.name, self.t0, time.time(), role=self.role
+            self.trace_id, self.name, self.t0, time.perf_counter(),
+            role=self.role,
         )
         return False
+
+
+def clock_anchor() -> list[float]:
+    """One ``[perf_counter, epoch]`` pair, taken now: what a span dump
+    carries so a reader can place its stamps on the epoch clock."""
+    return [time.perf_counter(), time.time()]
+
+
+def to_epoch(spans: list[dict], anchor: list[float]) -> list[dict]:
+    """Copies of ``spans`` with their stamps moved from ``perf_counter``
+    onto epoch seconds by a :func:`clock_anchor` pair of the same
+    process (a dump's)."""
+    shift = anchor[1] - anchor[0]
+    return [{**s, "t0": s["t0"] + shift, "t1": s["t1"] + shift}
+            for s in spans]
 
 
 def _union_seconds(intervals: list[tuple[float, float]]) -> float:
@@ -303,33 +331,64 @@ def format_timeline(timeline: dict) -> str:
 # The client activates a sink around each LOGICAL read (read_file /
 # read_file_into); deep layers that have no client reference — the
 # connection pool's dial, the read executor's socket waits and plan
-# postprocess — charge busy-time into whatever sink is ambient. A
-# contextvar (not a global) keeps concurrent clients in one process
-# (in-process test clusters, gateways) from cross-charging; asyncio
-# tasks and to_thread propagate it, run_in_executor does not (native
-# executor hops are therefore timed at the await site instead).
+# postprocess, the encoder seam — charge busy-time into whatever sink is
+# ambient. A contextvar (not a global) keeps concurrent clients in one
+# process (in-process test clusters, gateways) from cross-charging;
+# asyncio tasks and to_thread propagate it, run_in_executor does not
+# (native executor hops are therefore charged at the await site, by
+# :func:`charge_hop`).
 
 PHASE_SINK: contextvars.ContextVar = contextvars.ContextVar(
     "lz_read_phase_sink", default=None
 )
 
+# the phases of a logical read; each sums into the client's read
+# PhaseBreakdown. An off-loop hop's phase (net, gather) is split in
+# three parts that partition it: ``_queue`` (submitted until an executor
+# thread starts it), ``_run`` (the function in its thread) and
+# ``_resume`` (returned until the awaiting coroutine runs again). The
+# seam's ``seam_stage`` (survivor rows into pinned memory, H2D enqueued)
+# and ``seam_sync`` (the host blocked until the card's results are
+# back) fall inside ``decode``. Only the top-level phases rank as a
+# read's dominant one.
+READ_PHASES = ("locate", "dial", "wait", "net", "decode", "gather")
+HOP_PARTS = ("queue", "run", "resume")
+READ_SUBPHASES = tuple(
+    f"{hop}_{part}" for hop in ("net", "gather") for part in HOP_PARTS
+) + ("seam_stage", "seam_sync")
 
-def phase_t0() -> tuple[float, float]:
-    """(perf_counter, wall) anchor for :func:`charge_phase` — durations
-    stay monotonic-accurate while span endpoints stay epoch-aligned."""
-    return (time.perf_counter(), time.time())
+
+def phase_t0() -> float:
+    """``perf_counter`` stamp opening a :func:`charge_phase` interval."""
+    return time.perf_counter()
 
 
-def charge_phase(phase: str, t0: tuple[float, float]) -> None:
+def charge_phase(phase: str, t0: float) -> None:
     """Charge [t0, now] to ``phase`` on the ambient read-phase sink;
     free (one contextvar get) when no logical read is in flight."""
     sink = PHASE_SINK.get()
     if sink is not None:
-        sink(phase, t0, (time.perf_counter(), time.time()))
+        sink(phase, t0, time.perf_counter())
+
+
+def charge_hop(
+    phase: str, submitted: float, started: float, returned: float,
+) -> None:
+    """Charge one finished off-loop hop, on the loop as its awaiting
+    coroutine resumes: [submitted, now] to ``phase``, and its three
+    parts (executor queue, run in the thread, wait for the loop) to
+    ``<phase>_queue``, ``<phase>_run`` and ``<phase>_resume``."""
+    sink = PHASE_SINK.get()
+    if sink is not None:
+        resumed = time.perf_counter()
+        sink(phase, submitted, resumed)
+        sink(f"{phase}_queue", submitted, started)
+        sink(f"{phase}_run", started, returned)
+        sink(f"{phase}_resume", returned, resumed)
 
 
 def charge_queue_wait(
-    metrics, ring, gate: str, tenant: str, t0: tuple[float, float],
+    metrics, ring, gate: str, tenant: str, t0: float,
     *, role: str = "", trace_id: int | None = None,
 ) -> float:
     """Charge one finished queue wait: a ``queue_wait{gate,tenant}``
@@ -339,7 +398,7 @@ def charge_queue_wait(
     master + chunkservers + clients in one interpreter, so a
     process-global sink would misattribute the wait. Returns the
     seconds charged."""
-    seconds = max(time.perf_counter() - t0[0], 0.0)
+    seconds = max(time.perf_counter() - t0, 0.0)
     tid = current_trace_id() if trace_id is None else trace_id
     if metrics is not None:
         metrics.labeled_timing(
@@ -350,7 +409,7 @@ def charge_queue_wait(
         ).record(seconds, trace_id=tid)
     if ring is not None and tid:
         ring.record(
-            tid, f"queue_wait:{gate}", t0[1], t0[1] + seconds,
+            tid, f"queue_wait:{gate}", t0, t0 + seconds,
             role=role, gate=gate,
         )
     return seconds
@@ -365,6 +424,14 @@ ATTRIBUTION_BUCKETS = ("queue", "disk", "net", "compute", "unattributed")
 # names classify to None and their time surfaces as unattributed-gap —
 # honest, and exactly what flags a span this table should learn.
 _BUCKET_RULES = (
+    # the parts of an off-loop hop and of the seam, before the generic
+    # "read"/"net"/"gather" rules below would take them whole
+    ("_queue", "queue"),
+    ("_resume", "queue"),
+    ("net_run", "net"),
+    ("gather_run", "compute"),
+    ("seam_stage", "compute"),
+    ("seam_sync", "compute"),
     ("queue_wait", "queue"),
     ("dial", "queue"),
     ("throttle", "queue"),

@@ -474,7 +474,6 @@ class S3Gateway:
         class + per-op request counters."""
         opname = "Unknown"
         t0 = time.perf_counter()
-        tw0 = time.time()
         tid, fresh = tracing.begin()
         code = 500
         try:
@@ -515,13 +514,14 @@ class S3Gateway:
             )
             return req.headers.get("connection", "").lower() != "close"
         finally:
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            dt = t1 - t0
             self.metrics.labeled_counter(
                 "s3_requests", {"op": opname, "code": str(code)},
                 help="S3 gateway requests by operation and HTTP status",
             ).inc()
             self.client.trace_ring.record(
-                tid, f"s3_{opname}", tw0, time.time(), role="s3"
+                tid, f"s3_{opname}", t0, t1, role="s3"
             )
             self.slo.observe("s3", dt, trace_id=tid, name=f"s3_{opname}")
             # per-session protocol accounting: the op charged to this

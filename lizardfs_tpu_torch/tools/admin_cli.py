@@ -31,6 +31,7 @@ import sys
 from lizardfs_tpu_torch.proto import framing
 from lizardfs_tpu_torch.proto import messages as m
 from lizardfs_tpu_torch.proto import status as st
+from lizardfs_tpu_torch.runtime.tracing import READ_PHASES
 
 
 async def _admin(addr: tuple[str, int], command: str, payload: str = "{}",
@@ -374,9 +375,10 @@ def _print_top(doc: dict) -> None:
         )
         phases = entry.get("read_phases")
         if phases and phases.get("reps"):
+            # the top-level phases only: a part of one never dominates
             busy = {
-                k[:-3]: v for k, v in phases.items()
-                if k.endswith("_ms") and k != "wall_ms"
+                p: phases[f"{p}_ms"] for p in READ_PHASES
+                if f"{p}_ms" in phases
             }
             dom = max(busy, key=lambda k: busy[k]) if busy else "?"
             busy_s = " ".join(

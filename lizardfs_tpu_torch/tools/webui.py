@@ -25,6 +25,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from lizardfs_tpu_torch.proto import framing
 from lizardfs_tpu_torch.proto import messages as m
+from lizardfs_tpu_torch.runtime.tracing import READ_PHASES
 
 PAGE = """<!doctype html>
 <html><head><title>lizardfs-tpu status</title>
@@ -257,9 +258,10 @@ class Dashboard:
             phases = entry.get("read_phases") or {}
             roofline = ""
             if phases.get("reps"):
+                # the top-level phases only: a part of one never dominates
                 busy = {
-                    k[:-3]: v for k, v in phases.items()
-                    if k.endswith("_ms") and k != "wall_ms"
+                    p: phases[f"{p}_ms"] for p in READ_PHASES
+                    if f"{p}_ms" in phases
                 }
                 if busy:
                     dom = max(busy, key=lambda k: busy[k])

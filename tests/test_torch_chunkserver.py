@@ -1,8 +1,8 @@
 """The port's ``ChunkServer`` against the JAX package's, on the CPU.
 
 * Source: ``chunkserver/server.py`` is the JAX package's, its native
-  data plane included, but for the card's encoder and the replicator's
-  steps; ``chunkserver/__main__.py`` differs only in its encoder default.
+  data plane included, but for the card's encoder, the replicator's
+  steps and its spans' clock (``tests/torch_timing_departs.py``); ``chunkserver/__main__.py`` differs only in its encoder default.
 * The encoder: without one a server resolves the card's and raises here,
   where there is none. The entry point starts the native data plane under
   ``NATIVE_DATA_PLANE = true`` and under the default, as the JAX

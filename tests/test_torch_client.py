@@ -5,8 +5,9 @@ JAX package's, on the CPU.
   name changed in imports; lines that cite the JAX package's own change
   requests by number are reworded). ``client.py`` is the JAX
   package's, its native data plane included, line for line but for four
-  reworded comments: the encoder's default and three that cite change
-  requests by number.
+  reworded comments (the encoder's default and three that cite change
+  requests by number) and its read-path timing
+  (``tests/torch_timing_departs.py``).
 * Clusters: a port cluster (a port ``MasterServer``, port
   ``ChunkServer``s on ``CudaChunkEncoder(device="cpu")`` and a port
   ``Client`` on the same encoder) runs the scenarios of
@@ -84,8 +85,9 @@ def test_copied_module_matches_reference(rel):
 
 def test_client_is_the_reference_asyncio_path():
     """The port's client is the JAX package's, the asyncio path and the
-    native data plane, but for the encoder default's comment and three
-    comments that cite change requests by number."""
+    native data plane, but for the encoder default's comment, three
+    comments that cite change requests by number and the read-path
+    timing that ``renamed`` puts in place."""
     assert_departs("client/client.py", [
         '# default "auto": tpu on real silicon, else the native C++ SIMD',
         "# backend, else numpy — the old hardcoded \"cpu\" default made any",

@@ -5,7 +5,9 @@
   a line may differ only where the original cites one of the JAX
   package's own change requests by number and the copy does not.
   ``chunks.py`` and ``server.py`` depart by the lines ``DEPARTS`` lists
-  (balanced repeated placement; a registration adopting a missed bump). The
+  (balanced repeated placement; a registration adopting a missed bump),
+  and ``server.py`` by its spans' clock (``tests/torch_timing_departs.py``,
+  applied by ``renamed`` for every pinned module). The
   entry points (the master's and the metalogger's) build the same
   election wiring from the same configuration as the JAX package's.
 * State: the same seeded sequence of operations on the JAX and the port
@@ -35,6 +37,7 @@ import numpy as np
 import pytest
 
 from lizardfs_tpu_torch.constants import OFF_SPELLINGS
+from tests.torch_timing_departs import DEPARTS as TIMING_DEPARTS
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGES = {"jax": "lizardfs_tpu", "port": "lizardfs_tpu_torch"}
@@ -52,9 +55,19 @@ CHANGE_REFERENCE = re.compile(r"\bPR[- ]\d+")
 
 def renamed(rel: str) -> str:
     """The JAX package's source of ``rel`` with its own package name
-    changed to the port's."""
+    changed to the port's, and the port's read-path timing in place
+    (``tests/torch_timing_departs.py``)."""
     text = (ROOT / "lizardfs_tpu" / rel).read_text()
-    return re.sub(r"\blizardfs_tpu(?=[. ])", "lizardfs_tpu_torch", text)
+    return with_timing(rel, re.sub(r"\blizardfs_tpu(?=[. ])", "lizardfs_tpu_torch", text))
+
+
+def with_timing(rel: str, text: str) -> str:
+    """``text`` with the timing departures of ``rel`` applied; each old
+    block must occur exactly once."""
+    for old, new in TIMING_DEPARTS.get(rel, ()):
+        assert text.count(old) == 1, (rel, old)
+        text = text.replace(old, new)
+    return text
 
 
 def assert_copy(rel: str) -> None:

@@ -20,6 +20,11 @@
   socket path; descriptor frames sent by hand land; a remote peer's
   ``ShmInit`` is refused; the allocator's rollback.
 * The C NFSv3 client (``nfs/cnfs.py``) drives either package's gateway.
+* The read path's timing on native chunkservers: each native exchange
+  and de-interleave is a hop whose queue, run and resume parts partition
+  its charge, recovery charges the seam's stage and sync, and a traced
+  read's spans merge across the client, the master and the chunkservers
+  on one clock.
 
 No case binds the abstract unix name ``@lzfs-data-127.0.0.1-<port>`` on
 the shared host: native chunkservers listen on ``NATIVE_HOST``
@@ -30,6 +35,7 @@ listener, which rides that name's unix socket, runs on the card
 """
 
 import asyncio
+import json
 import os
 import socket
 import threading
@@ -47,11 +53,14 @@ from lizardfs_tpu_torch.ops import crc32
 from lizardfs_tpu_torch.proto import framing
 from lizardfs_tpu_torch.proto import messages as m
 from lizardfs_tpu_torch.proto import status as st
+from lizardfs_tpu_torch.runtime import tracing
+from lizardfs_tpu_torch.runtime.metrics import phase_delta
 from lizardfs_tpu_torch.utils import data_generator, striping
 from tests.test_torch_client import GOALS, Cluster, two_threads  # noqa: F401 (autouse fixture)
 from tests.test_torch_master import assert_departs, mod
 from tests.test_torch_native_serve import (  # noqa: F401 (autouse fixtures)
     NATIVE_HOST, jax_native_library, native_threads_released, run_native, settled)
+from tests.test_torch_read_hops import hops
 
 B = MFSBLOCKSIZE
 MiB = 1 << 20
@@ -203,6 +212,92 @@ def test_stripe_gather_cs_death_still_reads(tmp_path):
 
     run_native(scenario())
 
+
+
+def hop_checks(charges, phase: str) -> int:
+    """Each ``phase`` hop's queue, run and resume parts sum to its charge
+    within 1%; returns how many hops there were."""
+    got = hops(charges, phase)
+    for h in got:
+        assert min(h["queue"], h["run"], h["resume"]) >= 0
+        assert h["queue"] + h["run"] + h["resume"] == pytest.approx(h["whole"], rel=0.01)
+    return len(got)
+
+
+def test_read_hops_partition_their_phases(tmp_path, monkeypatch):
+    """A whole read on the stripe gather, then a degraded one on the wave
+    executor, recovery and the de-interleave: each native exchange and
+    de-interleave is a hop whose parts partition its charge, recovery
+    charges the seam's stage and sync, and the read's sub-phases land in
+    ``read_phases`` beside the phases they split."""
+    was = tracing.enabled()
+    tracing.set_enabled(True)
+
+    async def scenario():
+        cluster = native_cluster(tmp_path)
+        await cluster.start(health_interval=30.0)  # no repair: raw recovery
+        try:
+            c, f, data = await write_ec_file(cluster)
+            charges = []
+            sink = c._read_sink
+
+            def keep(phase, t0, t1):
+                charges.append((phase, t0, t1))
+                sink(phase, t0, t1)
+
+            monkeypatch.setattr(c, "_read_sink", keep)
+            back = np.zeros(len(data), dtype=np.uint8)
+            c.cache.invalidate(f.inode)
+            assert await c.read_file_into(f.inode, 0, back) == len(data)
+            assert back.tobytes() == data and c.op_counters.get("stripe_gather_fast")
+            assert hop_checks(charges, "net") >= 1
+            charges.clear()
+            await cluster.stop_data_holder(f.inode, 3)
+            c.cache.invalidate(f.inode)
+            before = c.read_phases.snapshot()
+            tid = tracing.start_trace()
+            assert await c.read_file(f.inode) == data
+            tracing.clear_trace()
+            assert hop_checks(charges, "net") >= 2
+            assert hop_checks(charges, "gather") >= 1
+            phases = phase_delta(c.read_phases.snapshot(), before)
+            for sub in ("seam_stage", "seam_sync"):
+                assert phases[f"{sub}_ms"] > 0
+            assert phases["seam_stage_ms"] + phases["seam_sync_ms"] <= phases["decode_ms"] + 0.02
+            parts = sum(phases[f"gather_{x}_ms"] for x in tracing.HOP_PARTS)
+            assert parts == pytest.approx(phases["gather_ms"], abs=0.05)
+            assert sum(phases[f"net_{x}_ms"] for x in tracing.HOP_PARTS) <= phases["net_ms"] + 0.05
+            return tid, c.trace_ring.dump(tid), [
+                json.loads(d.handle_admin_basics(m.AdminCommand(
+                    req_id=1, command="trace-dump", json=json.dumps({"trace_id": tid}))).json)
+                for d in [cluster.master, *cluster.chunkservers]]
+        finally:
+            await cluster.stop()
+
+    try:
+        tid, client_spans, dumps = run_native(scenario())
+    finally:
+        tracing.set_enabled(was)
+    names = {s["name"] for s in client_spans}
+    assert {"read:seam_stage", "read:seam_sync", "read:net_queue", "read:net_run",
+            "read:net_resume", "read:gather_queue", "read:gather_run",
+            "read:gather_resume"} <= names
+    # every role's spans on the one clock: the chunkservers' native ops
+    # and the master's RPCs fall inside the client's read
+    (root,) = [s for s in client_spans if s["name"] == "read_file"]
+    daemon_spans = [s for d in dumps for s in d["spans"]]
+    assert {s["role"] for s in daemon_spans} == {"master", "chunkserver"}
+    for s in daemon_spans:
+        assert root["t0"] - 0.005 <= s["t0"] <= s["t1"] <= root["t1"] + 0.005, s
+    timeline = tracing.merge_timeline(client_spans + daemon_spans, tid, wall_name="read_file")
+    assert {"client", "master", "chunkserver"} <= set(timeline["by_role_ms"])
+    attr = tracing.attribute_timeline(timeline)
+    assert sum(attr["buckets_ms"].values()) == pytest.approx(attr["wall_ms"], abs=0.01)
+    assert attr["buckets_ms"]["queue"] > 0 and attr["buckets_ms"]["compute"] > 0
+    # each dump's anchor moves its spans onto the epoch clock
+    for d in dumps:
+        for s in tracing.to_epoch(d["spans"], d["anchor"]):
+            assert abs(s["t0"] - time.time()) < 60.0
 
 async def stalled_server():
     """A server that accepts, reads one request and stays silent until

@@ -1,7 +1,8 @@
 """The port's native data plane against the JAX package's, on the CPU.
 
 * Source: ``core/native_io.py`` and ``chunkserver/native_serve.py`` are
-  verbatim copies (the package name changed in imports).
+  copies (the package name changed in imports); ``native_io`` departs by
+  its timed hop, ``Hop`` (``tests/torch_timing_departs.py``).
   ``client/native_client.py`` and ``nfs/cnfs.py`` differ only in the
   library they load, the port's build of the C client. ``core/native.py``
   keeps the JAX package's stripe helpers line for line (its CPU codec is

@@ -3,7 +3,8 @@
 * Source: ``nfs/xdr.py``, ``rpc.py``, ``client.py`` and ``__init__.py``
   are verbatim copies (the package name changed in imports);
   ``nfs/server.py`` differs only in the gateway's ``encoder`` keyword,
-  which it hands to its ``Client``. The native C NFSv3 client
+  which it hands to its ``Client``, and its spans' clock
+  (``tests/torch_timing_departs.py``). The native C NFSv3 client
   (``nfs/cnfs.py``) is pinned and driven in
   ``tests/test_torch_native_fast_paths.py``.
 * Scenario: a port cluster with the port's gateway (its client on

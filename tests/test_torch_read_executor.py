@@ -12,7 +12,8 @@ plain versions; the servers of both packages serve through their asyncio
 path, and the port's executor reads through its asyncio exchange (its
 native one set aside; the native plane is compared in
 ``tests/test_torch_native_*.py``). ``core/read_executor.py`` is a
-verbatim copy (the package name changed in imports).
+copy (the package name changed in imports) that departs only by its
+native part read's timed hop (``tests/torch_timing_departs.py``).
 """
 
 import asyncio

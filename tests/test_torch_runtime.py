@@ -4,7 +4,9 @@
   daemon, the connection pool) equal their originals' source with the
   package name changed in imports. Three module docstrings drop the JAX
   package's references to its own change requests
-  (``CHANGE_REFERENCE``), and nothing else may differ.
+  (``CHANGE_REFERENCE``); ``runtime/tracing.py`` and ``daemon.py`` depart
+  by the read-path timing of ``tests/torch_timing_departs.py``; nothing
+  else may differ.
 * ``bounded_wait``, ``RetryPolicy`` (on an injected clock and seeded
   jitter), ``TokenBucket`` and ``DrrByteQueue`` decide the same as the
   JAX package's on the same inputs. Every value is exact.
@@ -22,6 +24,7 @@ from lizardfs_tpu.runtime import limiter as ref_limiter
 from lizardfs_tpu.runtime import qos as ref_qos
 from lizardfs_tpu.runtime import retry as ref_retry
 from lizardfs_tpu_torch.runtime import limiter, qos, retry
+from tests.test_torch_master import with_timing
 
 ROOT = Path(__file__).resolve().parents[1]
 COPIES = [
@@ -33,7 +36,7 @@ COPIES = [
 ]
 # Three of the JAX package's docstrings cite its own change requests by
 # number; the copies drop each such reference, and nothing else may
-# differ.
+# differ but the timing departures (``with_timing``).
 CHANGE_REFERENCE = re.compile(r" \(PR \d+\)|PR-\d+ ")
 
 
@@ -53,7 +56,8 @@ DEPARTS = {"runtime/rpc.py": """        # a pump cancelled before its first step
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_matches_reference(rel):
-    want = (ROOT / "lizardfs_tpu" / rel).read_text().replace("lizardfs_tpu.", "lizardfs_tpu_torch.")
+    want = with_timing(rel, (ROOT / "lizardfs_tpu" / rel).read_text()
+                       .replace("lizardfs_tpu.", "lizardfs_tpu_torch."))
     got = (ROOT / "lizardfs_tpu_torch" / rel).read_text()
     if rel in DEPARTS:  # lines appended at the end of the file
         assert got.endswith(DEPARTS[rel]), rel

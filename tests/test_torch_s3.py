@@ -3,7 +3,8 @@
 * Source: ``s3/xmlutil.py``, ``client.py``, ``__init__.py`` and
   ``__main__.py`` are verbatim copies (the package name changed in
   imports); ``s3/server.py`` differs only in the gateway's ``encoder``
-  keyword, which it hands to its ``Client``. The port's constants carry
+  keyword, which it hands to its ``Client``, and its spans' clock
+  (``tests/torch_timing_departs.py``). The port's constants carry
   the gateway's ``LZ_S3`` switch and ETag xattr (pinned in
   ``tests/test_torch_ops.py``).
 * Scenario: a port cluster with the port's gateway (its client on

@@ -1,8 +1,9 @@
 """The port's operator tools against the JAX package's, on the CPU.
 
 * Source: ``tools/metadump.py``, ``metarestore.py``, ``admin_cli.py`` and
-  ``webui.py`` are verbatim copies (the package name changed in
-  imports); ``tools/cli.py`` differs only by its ``encoder`` keyword
+  ``webui.py`` are copies (the package name changed in imports); the
+  last two rank a session's dominant read phase over the top-level
+  phases only (``tests/torch_timing_departs.py``); ``tools/cli.py`` differs only by its ``encoder`` keyword
   (``main``, ``_amain`` and ``_connect`` hand it to the ``Client``).
 * Tools on clusters: the cases of ``tests/test_tools.py`` and
   ``tests/test_restore_tools.py`` run on a port cluster (its tools, a
