@@ -3003,6 +3003,19 @@ class Client:
             last.used_addrs = failed_addrs
         raise last
 
+    _READ_COUNTER_HELP = {
+        "stripe_fanin": "striped reads served by one native gather hop, "
+                        "lost data parts recovered in the same thread",
+        "stripe_fanin_fallback": "stripe fan-ins that failed and fell "
+                                 "back to the wave executor",
+    }
+
+    def _count_read(self, op: str) -> None:
+        """Count a read-path event in ``op_counters`` and on the
+        metrics registry."""
+        self._record(op)
+        self.metrics.counter(op, help=self._READ_COUNTER_HELP[op]).inc()
+
     def _part_failure_observer(self, loc):
         """execute_plan ``on_part_failure`` hook: a CRC-flagged part
         failure (the holder SERVED bytes that fail their checksum)
@@ -3112,63 +3125,6 @@ class Client:
         nslots = hi_slot - lo_slot + 1
         wanted = [first_data + i for i in range(d)]
 
-        # whole-stripe fast path: all data parts healthy, the request is
-        # exactly a slot-aligned region, and the caller gave us a
-        # contiguous destination — ONE native call reads every part over
-        # polled sockets and de-interleaves in C (no per-part thread
-        # dispatch, no separate gather pass). Any failure falls through
-        # to the wave executor below, which handles recovery.
-        from lizardfs_tpu_torch.core import native_io
-
-        region_blocks = hi_block - lo_block + 1
-        if (
-            native_io.parts_gather_available()
-            # armed faults: the C gather can't be instrumented — the
-            # wave executor below serves (LZ_FAULTS unset: unchanged)
-            and not _faults.ACTIVE
-            and into is not None
-            and off == lo_slot * d * MFSBLOCKSIZE
-            and size == region_blocks * MFSBLOCKSIZE
-            and into.flags.c_contiguous and into.dtype == np.uint8
-            and all(p in by_part for p in wanted)
-            and attempt == 0
-        ):
-            cell: dict = {}
-            # the hop carries the request trace id into the thread
-            # (run_in_executor drops context); the whole native gather
-            # (sockets + C de-interleave) is charged at the await as net
-            # and its queue/run/resume parts — the chunkserver's
-            # queue/disk/net attrs refine it in the attribution view
-            hop = native_io.Hop(
-                native_io.EXECUTOR, native_io.read_parts_gather_blocking,
-                [by_part[p][0] for p in wanted],
-                loc.chunk_id, loc.version,
-                [by_part[p][1] for p in wanted],
-                lo_slot * MFSBLOCKSIZE, region_blocks,
-                into[into_offset : into_offset + size],
-                cell,
-            )
-            fut = hop.future
-            try:
-                await asyncio.shield(fut)
-                hop.charge("net")
-                for p in wanted:
-                    GLOBAL_STATS.record_success(by_part[p][0])
-                # counted so tests/operators can see the fast path is
-                # actually taken (a silent precondition miss would
-                # quietly forfeit the 3x read win)
-                self._record("stripe_gather_fast")
-                return None
-            except asyncio.CancelledError:
-                native_io.abort_parts_gather(cell)
-                try:
-                    await asyncio.wait_for(asyncio.shield(fut), 10.0)
-                except (Exception, asyncio.CancelledError):
-                    pass
-                raise
-            except (native_io.NativeIOError, OSError, ConnectionError):
-                self._record("stripe_gather_fallback")
-                # degrade to the plan path (waves + recovery)
         # per-part scores from the shared chunkserver health registry:
         # an unhealthy holder's part drops in rank, so recovery reads
         # prefer parts on healthy servers (read_plan_executor.cc:95)
@@ -3181,6 +3137,36 @@ class Client:
         if not planner.is_readable(wanted):
             raise ReadError("not enough parts available")
         plan = planner.build_plan(wanted, lo_slot, nslots, part_sizes)
+        # stripe fan-in: wave 0 in one native gather and an EC slice's
+        # lost data parts recovered in the same thread, one hop for the
+        # whole read (core/stripe_fanin.py); a failure falls through to
+        # the waves
+        from lizardfs_tpu_torch.core import native_io, stripe_fanin
+
+        fanin = stripe_fanin.slots(plan, hi_block - lo_slot * d + 1)
+        if (
+            fanin is not None and attempt == 0
+            # armed faults: the C gather can't be instrumented — the
+            # wave executor below serves (LZ_FAULTS unset: unchanged)
+            and not _faults.ACTIVE
+            and native_io.parts_gather_available()
+        ):
+            dst = (
+                into[into_offset : into_offset + size]
+                if into is not None and into.flags.c_contiguous
+                and into.dtype == np.uint8 else None
+            )
+            try:
+                got = await stripe_fanin.read_stripe(
+                    plan, *fanin, self.encoder, loc.chunk_id, loc.version,
+                    by_part, off - lo_slot * d * MFSBLOCKSIZE, size,
+                    self.wave_timeout, dst,
+                )
+            except (native_io.NativeIOError, OSError, ConnectionError):
+                self._count_read("stripe_fanin_fallback")
+            else:
+                self._count_read("stripe_fanin")
+                return got
         # striped plans rotate bad parts internally via waves — no
         # blacklist tagging here, or one dead server would push every
         # healthy part off its topology-preferred copy on retry

@@ -898,6 +898,7 @@ def read_parts_gather_blocking(
     region_blocks: int,
     out: np.ndarray,
     cell: dict | None = None,
+    max_ms: int = 120_000,
 ) -> None:
     """Read ``region_blocks`` 64 KiB chunk blocks spread over d data
     parts (all starting at part-local ``offset``) in ONE poll-driven
@@ -905,7 +906,9 @@ def read_parts_gather_blocking(
     part i -> out[(j*d+i)*64Ki : ...]). The whole-chunk EC read fast
     path: one executor thread and one C call replace d of each. Raises
     NativeIOError with the first failing part's code; the caller falls
-    back to the wave executor (which handles recovery)."""
+    back to the wave executor (which handles recovery). ``max_ms`` bounds
+    the whole call, the redial included: a part that runs past it is
+    not redialled."""
     from lizardfs_tpu_torch.constants import MFSBLOCKSIZE
 
     d = len(addrs)
@@ -914,6 +917,7 @@ def read_parts_gather_blocking(
     # attempt 0 uses pooled sockets; a socket-level failure (-1) retries
     # once with fresh dials — the pool may hold connections staled by a
     # server restart (mirrors read_part_blocking's retry)
+    deadline = time.monotonic() + max_ms / 1000
     for attempt in (0, 1):
         reqs = (_PartReq * d)()
         socks = []
@@ -935,7 +939,7 @@ def read_parts_gather_blocking(
                 ctypes.cast(reqs, ctypes.c_void_p), d, offset,
                 region_blocks,
                 out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                120_000,
+                max(1, int((deadline - time.monotonic()) * 1000)),
             )
             if cell is not None:
                 cell.pop("socks", None)
@@ -948,6 +952,9 @@ def read_parts_gather_blocking(
             if (
                 attempt == 0 and bad == -1
                 and not (cell is not None and cell.get("aborted"))
+                # a call that ran to its deadline (C counts whole ms)
+                # timed out: no redial
+                and time.monotonic() < deadline - 0.002
             ):
                 continue  # stale pooled socket: redial everything once
             raise NativeIOError(bad, "parts gather")

@@ -7,8 +7,9 @@
   package's only by its encoder default and by checking and filling a
   caller's ``out``.
 * The cases of ``tests/test_fast_paths.py`` on port clients and port
-  chunkservers: the whole-stripe gather (its failure and a dead holder
-  fall back to the wave executor), the gather's abort, the one-call parts
+  chunkservers: the whole-stripe gather (its failure falls back to the
+  wave executor, a dead holder is recovered in the stripe fan-in's
+  thread), the gather's abort, the one-call parts
   scatter write (its failure falls back per part; chained copies stand
   aside), the scatter's abort, and a cancelled striped write that must
   not pool a buffer a sender thread may still read.
@@ -48,7 +49,7 @@ from lizardfs_tpu.core import native as ref_native
 from lizardfs_tpu.core import native_io as ref_native_io
 from lizardfs_tpu.utils import striping as ref_striping
 from lizardfs_tpu_torch.constants import MFSBLOCKSIZE, MFSCHUNKSIZE
-from lizardfs_tpu_torch.core import native, native_io
+from lizardfs_tpu_torch.core import native, native_io, stripe_fanin
 from lizardfs_tpu_torch.ops import crc32
 from lizardfs_tpu_torch.proto import framing
 from lizardfs_tpu_torch.proto import messages as m
@@ -188,7 +189,7 @@ def test_stripe_gather_failure_falls_back_to_waves(tmp_path, monkeypatch):
             c.cache.invalidate(f.inode)
             assert await c.read_file_into(f.inode, 0, back) == len(data)
             assert back.tobytes() == data
-            assert c.op_counters.get("stripe_gather_fallback", 0) >= 1
+            assert c.op_counters.get("stripe_fanin_fallback", 0) >= 1
         finally:
             await cluster.stop()
 
@@ -206,7 +207,9 @@ def test_stripe_gather_cs_death_still_reads(tmp_path):
             c.cache.invalidate(f.inode)
             assert await c.read_file_into(f.inode, 0, back) == len(data)
             assert back.tobytes() == data
-            assert not c.op_counters.get("stripe_gather_fast")
+            # the lost part is recovered in the fan-in's thread
+            assert c.op_counters.get("stripe_fanin") == 1
+            assert not c.op_counters.get("stripe_fanin_fallback")
         finally:
             await cluster.stop()
 
@@ -224,11 +227,14 @@ def hop_checks(charges, phase: str) -> int:
     return len(got)
 
 
-def test_read_hops_partition_their_phases(tmp_path, monkeypatch):
-    """A whole read on the stripe gather, then a degraded one on the wave
-    executor, recovery and the de-interleave: each native exchange and
-    de-interleave is a hop whose parts partition its charge, recovery
-    charges the seam's stage and sync, and the read's sub-phases land in
+@pytest.mark.parametrize("path", ["fanin", "waves"])
+def test_read_hops_partition_their_phases(tmp_path, monkeypatch, path):
+    """A whole read on the stripe fan-in, then a degraded one: on the
+    fan-in, one native hop with the recovery in its thread, or,
+    with the fan-in made to fail, on the wave executor, recovery and the
+    de-interleave. Each native exchange and de-interleave is a hop whose
+    parts partition its charge, recovery charges ``decode`` and the
+    seam's stage and sync, and the read's sub-phases land in
     ``read_phases`` beside the phases they split."""
     was = tracing.enabled()
     tracing.set_enabled(True)
@@ -249,24 +255,50 @@ def test_read_hops_partition_their_phases(tmp_path, monkeypatch):
             back = np.zeros(len(data), dtype=np.uint8)
             c.cache.invalidate(f.inode)
             assert await c.read_file_into(f.inode, 0, back) == len(data)
-            assert back.tobytes() == data and c.op_counters.get("stripe_gather_fast")
-            assert hop_checks(charges, "net") >= 1
+            assert back.tobytes() == data and c.op_counters.get("stripe_fanin") == 1
+            assert hop_checks(charges, "net") == 1
             charges.clear()
             await cluster.stop_data_holder(f.inode, 3)
             c.cache.invalidate(f.inode)
+            if path == "waves":
+                def fail(*a):
+                    raise native_io.NativeIOError(5, "injected fan-in failure")
+
+                monkeypatch.setattr(stripe_fanin, "_read_blocking", fail)
             before = c.read_phases.snapshot()
             tid = tracing.start_trace()
             assert await c.read_file(f.inode) == data
             tracing.clear_trace()
-            assert hop_checks(charges, "net") >= 2
-            assert hop_checks(charges, "gather") >= 1
+            counted = (c.op_counters.get("stripe_fanin", 0),
+                       c.op_counters.get("stripe_fanin_fallback", 0))
+            if path == "fanin":
+                assert counted == (2, 0)
+                # one hop: net until the recovery in its thread, which is
+                # decode, then net again while the loop resumes it
+                net0, net1 = [(t0, t1) for p, t0, t1 in charges if p == "net"]
+                (dec,) = [(t0, t1) for p, t0, t1 in charges if p == "decode"]
+                assert net0[1] == dec[0] < dec[1] == net1[0]
+                got = [[t1 - t0 for p, t0, t1 in charges if p == f"net_{x}"]
+                       for x in tracing.HOP_PARTS]
+                assert [len(x) for x in got] == [1, 1, 1] and min(map(min, got)) >= 0
+                assert sum(x[0] for x in got) == pytest.approx(
+                    net0[1] - net0[0] + net1[1] - net1[0], rel=0.01)
+                assert hop_checks(charges, "gather") == 0
+            else:
+                assert counted == (1, 1)
+                assert hop_checks(charges, "net") >= 2
+                assert hop_checks(charges, "gather") >= 1
             phases = phase_delta(c.read_phases.snapshot(), before)
             for sub in ("seam_stage", "seam_sync"):
                 assert phases[f"{sub}_ms"] > 0
             assert phases["seam_stage_ms"] + phases["seam_sync_ms"] <= phases["decode_ms"] + 0.02
             parts = sum(phases[f"gather_{x}_ms"] for x in tracing.HOP_PARTS)
             assert parts == pytest.approx(phases["gather_ms"], abs=0.05)
-            assert sum(phases[f"net_{x}_ms"] for x in tracing.HOP_PARTS) <= phases["net_ms"] + 0.05
+            net_parts = sum(phases[f"net_{x}_ms"] for x in tracing.HOP_PARTS)
+            assert net_parts <= phases["net_ms"] + 0.05
+            if path == "fanin":
+                assert net_parts == pytest.approx(phases["net_ms"], abs=0.05)
+                assert phases["gather_ms"] == 0
             return tid, c.trace_ring.dump(tid), [
                 json.loads(d.handle_admin_basics(m.AdminCommand(
                     req_id=1, command="trace-dump", json=json.dumps({"trace_id": tid}))).json)
@@ -279,9 +311,13 @@ def test_read_hops_partition_their_phases(tmp_path, monkeypatch):
     finally:
         tracing.set_enabled(was)
     names = {s["name"] for s in client_spans}
-    assert {"read:seam_stage", "read:seam_sync", "read:net_queue", "read:net_run",
-            "read:net_resume", "read:gather_queue", "read:gather_run",
-            "read:gather_resume"} <= names
+    assert {"read:seam_stage", "read:seam_sync", "read:decode", "read:net_queue",
+            "read:net_run", "read:net_resume"} <= names
+    gather_spans = {"read:gather_queue", "read:gather_run", "read:gather_resume"}
+    if path == "fanin":
+        assert not gather_spans & names
+    else:
+        assert gather_spans <= names
     # every role's spans on the one clock: the chunkservers' native ops
     # and the master's RPCs fall inside the client's read
     (root,) = [s for s in client_spans if s["name"] == "read_file"]
@@ -294,6 +330,7 @@ def test_read_hops_partition_their_phases(tmp_path, monkeypatch):
     attr = tracing.attribute_timeline(timeline)
     assert sum(attr["buckets_ms"].values()) == pytest.approx(attr["wall_ms"], abs=0.01)
     assert attr["buckets_ms"]["queue"] > 0 and attr["buckets_ms"]["compute"] > 0
+    assert attr["buckets_ms"]["net"] > 0
     # each dump's anchor moves its spans onto the epoch clock
     for d in dumps:
         for s in tracing.to_epoch(d["spans"], d["anchor"]):

@@ -580,7 +580,9 @@ def test_mixed_cluster_native_plane_matches_asyncio(tmp_path, servers, client):
     assert not ref["planes"] and len(got["planes"]) == 6
     assert sum(s["bytes_written"] for s in got["planes"]) > 0, "the listeners took no write"
     assert sum(s["bytes_read"] for s in got["planes"]) > 0, "the listeners served no read"
-    for op in ("write_window", "parts_scatter_write", "stripe_gather_fast"):
+    # the port's stripe fan-in took the JAX package's whole-stripe gather in
+    gather = "stripe_fanin" if client == "port" else "stripe_gather_fast"
+    for op in ("write_window", "parts_scatter_write", gather):
         assert got["ops"].get(op, 0) >= 1 and not ref["ops"].get(op), op
     if client == "port":
         # the windowed file encodes segment by segment; the asyncio plane's
@@ -612,7 +614,7 @@ def test_armed_faults_stand_the_plane_down(tmp_path):
             back = np.zeros(len(data), np.uint8)
             assert await c.read_file_into(f.inode, 0, back) == len(data)
             assert back.tobytes() == data
-            for op in ("write_window", "parts_scatter_write", "stripe_gather_fast"):
+            for op in ("write_window", "parts_scatter_write", "stripe_fanin"):
                 assert not c.op_counters.get(op), op
         finally:
             await cluster.stop()
