@@ -23,6 +23,7 @@ from __future__ import annotations
 import abc
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from lizardfs_tpu_torch.parallel import recovery, sharded
 from lizardfs_tpu_torch.runtime import tracing
 
 _MATRIX_CACHE = 256  # device matrices an encoder keeps (oldest dropped first)
+_PLAN_CACHE = 256  # recovery plans an encoder keeps (oldest dropped first)
 _STEP_CACHE = 64  # mesh rebuild steps a sharded encoder keeps (then cleared)
 
 
@@ -124,6 +126,16 @@ def _columns(bigm: np.ndarray, keep: list[int]) -> np.ndarray:
     return bigm[:, cols]
 
 
+class _RecoveryPlan(NamedTuple):
+    """What ``recover`` derives from an erasure pattern: the parts it
+    stages (those the reference's selection rule reads, less the ones
+    given as None, in the rule's order) and the device copy of the
+    column-elided bit-plane matrix over them."""
+
+    sources: tuple[int, ...]
+    matrix: torch.Tensor
+
+
 class CudaChunkEncoder(ChunkEncoder):
     """The CUDA kernels behind the encoder surface.
 
@@ -134,9 +146,16 @@ class CudaChunkEncoder(ChunkEncoder):
     every method through the kernels' plain PyTorch versions (tests).
 
     One encoder serves concurrent threads (the client encodes each chunk
-    of a write in ``asyncio.to_thread``): the matrix cache is guarded by
-    a lock, and each call stages, launches and fetches on its thread's
-    current stream, whose copies back to the host wait for the kernel.
+    of a write in ``asyncio.to_thread``): the matrix and plan caches are
+    guarded by locks, and each call stages, launches and fetches on its
+    thread's current stream, whose copies back to the host wait for the
+    kernel.
+
+    ``recover`` keeps a plan per erasure pattern (:class:`_RecoveryPlan`,
+    keyed by geometry, available parts, wanted parts in order and the
+    available parts given as None), so a pattern seen before costs a dict
+    lookup: no part selection, no matrix inversion, no matrix key. A
+    chunk read while a server is down repeats one pattern on every read.
     """
 
     name = "cuda"
@@ -149,6 +168,11 @@ class CudaChunkEncoder(ChunkEncoder):
         # uploaded once is read back once
         self._matrices: dict[tuple, torch.Tensor] = {}
         self._matrices_lock = threading.Lock()
+        self._plans: dict[tuple, _RecoveryPlan] = {}
+        self._plans_lock = threading.Lock()
+        # plan lookups of ``recover``: a hit reuses the plan of a pattern
+        # seen before, a miss selects the parts and derives the matrix
+        self.plan_counts = {"recover_plan_hit": 0, "recover_plan_miss": 0}
 
     def _stage(self, rows) -> torch.Tensor:
         """Equal-length 1-D byte arrays -> one (len(rows), N) uint8 tensor
@@ -214,16 +238,39 @@ class CudaChunkEncoder(ChunkEncoder):
         for dst, row in zip(out, parity):
             torch.from_numpy(dst).copy_(row)
 
-    def recover(self, k, m, parts, wanted):
-        used, _ = gf256.recovery_selection(k, m, list(parts.keys()), wanted)
-        bigm = torch_ec.recovery_bitmatrix(k, m, tuple(used), tuple(wanted))
-        nonzero_pos = [j for j, i in enumerate(used) if parts[i] is not None]
+    def _plan(self, k, m, avail, wanted, absent) -> _RecoveryPlan:
+        """Build the recovery plan of one erasure pattern, by the rule of
+        ``gf256.recovery_selection`` (the bytes of the reference's
+        ``recover`` by construction)."""
+        used, _ = gf256.recovery_selection(k, m, list(avail), list(wanted))
+        bigm = torch_ec.recovery_bitmatrix(k, m, tuple(used), wanted)
+        nonzero_pos = [j for j, i in enumerate(used) if i not in absent]
         if not nonzero_pos:
             raise ValueError("at least one available part must be non-None")
         if len(nonzero_pos) < len(used):
             bigm = _columns(bigm, nonzero_pos)
-        data = self._stage([parts[used[j]] for j in nonzero_pos])
-        out = self._fetch(cuda_ec.encode(self._matrix(bigm), data))
+        matrix = torch.from_numpy(np.ascontiguousarray(bigm)).to(self.device)
+        return _RecoveryPlan(tuple(used[j] for j in nonzero_pos), matrix)
+
+    def recover(self, k, m, parts, wanted):
+        avail = tuple(sorted(parts))
+        absent = tuple(i for i in avail if parts[i] is None)
+        wanted = tuple(wanted)
+        key = (k, m, avail, wanted, absent)
+        with self._plans_lock:
+            plan = self._plans.get(key)
+            if plan is None:
+                # built under the lock, so a pattern is derived once however
+                # many threads meet it first
+                plan = self._plan(k, m, avail, wanted, absent)
+                if len(self._plans) >= _PLAN_CACHE:
+                    self._plans.pop(next(iter(self._plans)))
+                self._plans[key] = plan
+                self.plan_counts["recover_plan_miss"] += 1
+            else:
+                self.plan_counts["recover_plan_hit"] += 1
+        data = self._stage([parts[i] for i in plan.sources])
+        out = self._fetch(cuda_ec.encode(plan.matrix, data))
         return {w: out[i] for i, w in enumerate(wanted)}
 
     def checksum(self, blocks):

@@ -1,6 +1,7 @@
 """The port's CudaChunkEncoder, on the CPU, against the JAX package's
 golden CpuChunkEncoder, method by method (byte-exact)."""
 
+import itertools
 import sys
 import threading
 import time
@@ -12,7 +13,9 @@ import torch
 from lizardfs_tpu.core.encoder import CpuChunkEncoder as RefCpuChunkEncoder
 from lizardfs_tpu_torch.core import encoder as port_encoder
 from lizardfs_tpu_torch.core.encoder import CpuChunkEncoder, CudaChunkEncoder, get_encoder
+from lizardfs_tpu_torch.ops import gf256 as port_gf256
 from lizardfs_tpu_torch.ops import torch_ec
+from lizardfs_tpu_torch.runtime import tracing as port_tracing
 
 ref = RefCpuChunkEncoder()
 
@@ -209,3 +212,227 @@ def test_concurrent_encodes_share_one_encoder(monkeypatch):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert errors == []
+
+
+# ---- the recovery plan cache and the staging -------------------------------
+
+
+def _coded(k, m, size, seed):
+    data = _parts(np.random.default_rng(seed), k, size)
+    return data + ref.encode(k, m, data)
+
+
+def _wanted_lists(k, lost):
+    """Wanted data parts, wanted parity parts, and all of them mixed in
+    another order: each its own plan."""
+    data = [i for i in lost if i < k]
+    parity = [i for i in lost if i >= k]
+    out = [w for w in (data, parity) if w]
+    if data and parity:
+        out.append(list(reversed(lost)))
+    return out
+
+
+def _plan_counts(enc):
+    return dict(enc.plan_counts)
+
+
+def _assert_recovers_as_the_reference(enc, k, m, parts, wanted):
+    got = enc.recover(k, m, parts, wanted)
+    want = ref.recover(k, m, parts, wanted)
+    assert list(got) == list(wanted)
+    for w in wanted:
+        np.testing.assert_array_equal(got[w], want[w])
+
+
+@pytest.mark.parametrize("k,m,nlost", [(8, 4, 1), (8, 4, 2), (8, 4, 3), (8, 4, 4), (3, 2, 1),
+                                       (3, 2, 2)])
+def test_recover_plan_matches_the_reference_for_every_pattern(k, m, nlost):
+    """Every erasure pattern, for wanted data, parity and mixed lists:
+    the first call derives the plan (a miss), the second, on rows of
+    another length, reuses it (a hit); both give the reference's bytes."""
+    enc = CudaChunkEncoder(device="cpu")
+    first, second = _coded(k, m, 64, seed=k * 10 + nlost), _coded(k, m, 96, seed=nlost)
+    before = _plan_counts(enc)
+    calls = 0
+    for lost in itertools.combinations(range(k + m), nlost):
+        for wanted in _wanted_lists(k, list(lost)):
+            for coded in (first, second):
+                parts = {i: coded[i] for i in range(k + m) if i not in lost}
+                _assert_recovers_as_the_reference(enc, k, m, parts, wanted)
+                got = enc.recover(k, m, parts, wanted)
+                for w in wanted:
+                    np.testing.assert_array_equal(got[w], coded[w])
+            calls += 1
+    after = _plan_counts(enc)
+    assert after["recover_plan_miss"] - before["recover_plan_miss"] == calls
+    assert after["recover_plan_hit"] - before["recover_plan_hit"] == 3 * calls
+    assert len(enc._plans) == min(calls, port_encoder._PLAN_CACHE)
+
+
+@pytest.mark.parametrize("k,m", [(8, 4), (3, 2)])
+def test_recover_plan_with_elided_parts(k, m):
+    """An available part given as None is all zeros and left out of the
+    matrix: each pattern of one or two lost parts with each available part
+    elided in turn gives the reference's bytes, on a miss and on a hit."""
+    enc = CudaChunkEncoder(device="cpu")
+    first, second = _coded(k, m, 64, seed=k), _coded(k, m, 80, seed=m)
+    for nlost in (1, 2):
+        for lost in itertools.combinations(range(k + m), nlost):
+            avail = [i for i in range(k + m) if i not in lost]
+            for elided in avail:
+                for coded in (first, second):
+                    parts = {i: coded[i] for i in avail}
+                    parts[elided] = None
+                    _assert_recovers_as_the_reference(enc, k, m, parts, list(lost))
+    parts = {i: None for i in range(1, k + m)}
+    with pytest.raises(ValueError, match="non-None"):
+        enc.recover(k, m, parts, [0])
+
+
+def test_recover_plan_hit_derives_nothing(monkeypatch):
+    """After a pattern's first call, neither the part selection nor the
+    matrix inversion runs again for it."""
+    enc = CudaChunkEncoder(device="cpu")
+    k, m = 8, 4
+    coded = _coded(k, m, 128, seed=11)
+    patterns = [([3], [0, 1, 2, 4, 5, 6, 7, 8]), ([0, 9], None), ([8, 10, 11], None),
+                ([1, 2, 3, 4], None)]
+    cases = []
+    for lost, use in patterns:
+        parts = {i: coded[i] for i in (use or range(k + m)) if i not in lost}
+        cases.append((parts, lost))
+        _assert_recovers_as_the_reference(enc, k, m, parts, lost)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a cached pattern derived its plan again")
+
+    before = _plan_counts(enc)
+    references = [ref.recover(k, m, parts, lost) for parts, lost in cases]
+    monkeypatch.setattr(port_gf256, "recovery_selection", refuse)
+    monkeypatch.setattr(port_gf256, "gf_invert_matrix", refuse)
+    for (parts, lost), want in zip(cases, references):
+        got = enc.recover(k, m, parts, lost)
+        for w in lost:
+            np.testing.assert_array_equal(got[w], want[w])
+            np.testing.assert_array_equal(got[w], coded[w])
+    after = _plan_counts(enc)
+    assert after["recover_plan_hit"] - before["recover_plan_hit"] == len(cases)
+    assert after["recover_plan_miss"] == before["recover_plan_miss"]
+
+
+def test_recover_plan_keys_on_elision_and_wanted_order():
+    """The same parts with another elision mask, or the same wanted parts
+    in another order, are plans of their own, each with the reference's
+    bytes."""
+    enc = CudaChunkEncoder(device="cpu")
+    k, m = 8, 4
+    coded = _coded(k, m, 256, seed=12)
+    full = {i: coded[i] for i in range(k + m) if i not in (2, 5)}
+    variants = [
+        (full, [2, 5]),
+        (full, [5, 2]),
+        ({**full, 0: None}, [2, 5]),
+        ({**full, 1: None}, [2, 5]),
+        ({**full, 0: None, 1: None}, [5, 2]),
+    ]
+    before = _plan_counts(enc)
+    for parts, wanted in variants + variants:
+        _assert_recovers_as_the_reference(enc, k, m, parts, wanted)
+    after = _plan_counts(enc)
+    assert after["recover_plan_miss"] - before["recover_plan_miss"] == len(variants)
+    assert after["recover_plan_hit"] - before["recover_plan_hit"] == len(variants)
+    assert len(enc._plans) == len(variants)
+
+
+def test_recover_plans_shared_by_threads():
+    """Eight threads recovering mixed patterns on one encoder get the
+    reference's bytes; every call is counted once, as a hit or a miss,
+    and each distinct pattern misses once."""
+    enc = CudaChunkEncoder(device="cpu")
+    geometries = [(8, 4), (3, 2), (4, 2)]
+    coded = {(k, m): _coded(k, m, 192, seed=k + m) for k, m in geometries}
+    patterns = []
+    for k, m in geometries:
+        for lost in list(itertools.combinations(range(k + m), 2))[:6]:
+            patterns.append((k, m, list(lost)))
+    references = {}
+    for k, m, lost in patterns:
+        parts = {i: coded[k, m][i] for i in range(k + m) if i not in lost}
+        references[k, m, tuple(lost)] = ref.recover(k, m, parts, lost)
+    errors = []
+    rounds = 5
+
+    def work(seed):
+        order = np.random.default_rng(seed).permutation(len(patterns) * rounds)
+        for n in order:
+            k, m, lost = patterns[n % len(patterns)]
+            parts = {i: coded[k, m][i] for i in range(k + m) if i not in lost}
+            try:
+                got = enc.recover(k, m, parts, lost)
+                for w in lost:
+                    np.testing.assert_array_equal(got[w], references[k, m, tuple(lost)][w])
+            except Exception as e:  # collected: a thread's failure fails the test
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(seed,)) for seed in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    counts = _plan_counts(enc)
+    assert counts["recover_plan_hit"] + counts["recover_plan_miss"] == 8 * rounds * len(patterns)
+    assert counts["recover_plan_miss"] == len(patterns)
+
+
+def test_recover_plan_cache_stays_within_its_bound(monkeypatch):
+    monkeypatch.setattr(port_encoder, "_PLAN_CACHE", 4)
+    enc = CudaChunkEncoder(device="cpu")
+    k, m = 8, 4
+    coded = _coded(k, m, 64, seed=13)
+    for lost in itertools.combinations(range(k + m), 2):
+        parts = {i: coded[i] for i in range(k + m) if i not in lost}
+        _assert_recovers_as_the_reference(enc, k, m, parts, list(lost))
+        assert len(enc._plans) <= 4
+    assert len(enc._plans) == 4
+
+
+def _staging_cases():
+    rng = np.random.default_rng(14)
+    big = rng.integers(0, 256, (16, 3000), dtype=np.uint8)
+    return {
+        "contiguous": [rng.integers(0, 256, 1000, dtype=np.uint8) for _ in range(8)],
+        "read-only": [np.frombuffer(rng.bytes(1000), dtype=np.uint8) for _ in range(8)],
+        "row views": [big[i, 100:1100] for i in range(8)],
+        "strided views": [big[i:i + 8, 7] for i in range(5)] + [big[3, ::3][:8]],
+        "reversed": [big[i, 999::-1] for i in range(4)],
+        "2-D array": big[:6],
+        "2-D view": big[2:12:2, 5:2005],
+    }
+
+
+@pytest.mark.parametrize("case", list(_staging_cases()))
+def test_stage_copies_the_rows_as_given(enc, monkeypatch, case):
+    """The staging gives the rows' bytes in order for contiguous,
+    read-only and view rows, and charges ``seam_stage`` once a call."""
+    rows = _staging_cases()[case]
+    charged = []
+    monkeypatch.setattr(port_tracing, "charge_phase",
+                        lambda phase, t0: charged.append(phase))
+    got = enc._stage(rows)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), np.stack(list(rows)))
+    assert charged == ["seam_stage"]
+
+
+def test_stage_refuses_unequal_lengths(enc):
+    rows = [np.zeros(64, np.uint8), np.zeros(64, np.uint8), np.zeros(63, np.uint8)]
+    with pytest.raises(ValueError, match="equal size"):
+        enc._stage(rows)
