@@ -3008,6 +3008,8 @@ class Client:
                         "lost data parts recovered in the same thread",
         "stripe_fanin_fallback": "stripe fan-ins that failed and fell "
                                  "back to the wave executor",
+        "stripe_fanin_rounds": "native gather calls of the stripe fan-ins "
+                               "(rounds of up to 1 MiB a part)",
     }
 
     def _count_read(self, op: str) -> None:
@@ -3156,17 +3158,27 @@ class Client:
                 if into is not None and into.flags.c_contiguous
                 and into.dtype == np.uint8 else None
             )
+            cell: dict = {}
             try:
                 got = await stripe_fanin.read_stripe(
                     plan, *fanin, self.encoder, loc.chunk_id, loc.version,
                     by_part, off - lo_slot * d * MFSBLOCKSIZE, size,
-                    self.wave_timeout, dst,
+                    self.wave_timeout, dst, cell,
                 )
             except (native_io.NativeIOError, OSError, ConnectionError):
                 self._count_read("stripe_fanin_fallback")
             else:
                 self._count_read("stripe_fanin")
                 return got
+            finally:
+                # the hop's gather calls: a counter, no oplog entry
+                if rounds := cell.get("rounds", 0):
+                    self.op_counters["stripe_fanin_rounds"] = (
+                        self.op_counters.get("stripe_fanin_rounds", 0) + rounds)
+                    self.metrics.counter(
+                        "stripe_fanin_rounds",
+                        help=self._READ_COUNTER_HELP["stripe_fanin_rounds"],
+                    ).inc(rounds)
         # striped plans rotate bad parts internally via waves — no
         # blacklist tagging here, or one dead server would push every
         # healthy part off its topology-preferred copy on retry

@@ -27,7 +27,9 @@ The loop resumes once. The hop is charged as ``net`` but for the
 recovery in its thread, which is ``decode``; the recovery's charges
 (the seam's ``seam_stage`` and ``seam_sync``) are collected in the
 thread and replayed on the read's sink when the loop resumes, so the
-sink and the trace ring are touched on the loop only.
+sink and the trace ring are touched on the loop only. A hop that fails
+and sends the read to the waves is charged as ``fanin_fallback``, from
+its submission to the failure, and nothing else.
 """
 
 from __future__ import annotations
@@ -118,6 +120,7 @@ def _read_blocking(
     step = ROUND_SLOTS * d
     for first in range(0, blocks, step):
         n = min(step, blocks - first)
+        cell["rounds"] = cell.get("rounds", 0) + 1
         native_io.read_parts_gather_blocking(
             addrs, chunk_id, version, part_ids,
             by_slot[0].request_offset + first // d * MFSBLOCKSIZE, n,
@@ -165,7 +168,7 @@ def _charge(hop: native_io.Hop, recovered_from: float | None, charges) -> None:
 async def read_stripe(
     plan: SliceReadPlan, by_slot: list[ReadOp], blocks: int, encoder,
     chunk_id: int, version: int, locations: dict, rel: int, size: int,
-    wave_timeout: float, dst: np.ndarray | None = None,
+    wave_timeout: float, dst: np.ndarray | None = None, cell: dict | None = None,
 ) -> np.ndarray | None:
     """Serve ``plan`` in one hop with the wave-0 ops by slot and the
     blocks to gather from :func:`slots`: the ``size`` bytes at ``rel``
@@ -173,11 +176,13 @@ async def read_stripe(
     returned. ``locations``: part -> ((host, port), wire part id).
     Raises ``native_io.NativeIOError``, ``OSError`` or
     ``ConnectionError`` where the wave executor has to serve the plan
-    instead. Cancelled, it aborts the gather and joins its thread before
-    it returns, so nothing writes ``dst`` after."""
+    instead, charging the hop as ``fanin_fallback``. Cancelled, it
+    aborts the gather and joins its thread before it returns, so nothing
+    writes ``dst`` after. ``cell``, where given, is the hop's state
+    shared with its thread; its ``rounds`` counts the gather calls."""
     from lizardfs_tpu_torch.core.cs_stats import GLOBAL_STATS
 
-    cell: dict = {}
+    cell = {} if cell is None else cell
     hop = native_io.Hop(
         native_io.EXECUTOR, _read_blocking, plan, by_slot, blocks, encoder,
         chunk_id, version, locations, rel, size,
@@ -192,6 +197,9 @@ async def read_stripe(
             await asyncio.wait_for(asyncio.shield(fut), 10.0)
         except (Exception, asyncio.CancelledError):
             pass
+        raise
+    except (native_io.NativeIOError, OSError, ConnectionError):
+        tracing.charge_phase("fanin_fallback", hop.submitted)
         raise
     _charge(hop, recovered_from, charges)
     for op in by_slot:

@@ -349,13 +349,15 @@ PHASE_SINK: contextvars.ContextVar = contextvars.ContextVar(
 # ``_resume`` (returned until the awaiting coroutine runs again). The
 # seam's ``seam_stage`` (survivor rows into pinned memory, H2D enqueued)
 # and ``seam_sync`` (the host blocked until the card's results are
-# back) fall inside ``decode``. Only the top-level phases rank as a
-# read's dominant one.
+# back) fall inside ``decode``. ``fanin_fallback`` is a stripe fan-in
+# hop that failed and sent its read to the waves, from its submission to
+# the failure: time no top-level phase holds. Only the top-level phases
+# rank as a read's dominant one.
 READ_PHASES = ("locate", "dial", "wait", "net", "decode", "gather")
 HOP_PARTS = ("queue", "run", "resume")
 READ_SUBPHASES = tuple(
     f"{hop}_{part}" for hop in ("net", "gather") for part in HOP_PARTS
-) + ("seam_stage", "seam_sync")
+) + ("seam_stage", "seam_sync", "fanin_fallback")
 
 
 def phase_t0() -> float:

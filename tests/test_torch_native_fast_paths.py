@@ -225,7 +225,8 @@ def test_read_hops_partition_their_phases(tmp_path, monkeypatch, path):
     de-interleave. Each native exchange and de-interleave is a hop whose
     parts partition its charge, recovery charges ``decode`` and the
     seam's stage and sync, and the read's sub-phases land in
-    ``read_phases`` beside the phases they split."""
+    ``read_phases`` beside the phases they split; the fan-in's failed hop
+    is charged as ``fanin_fallback``, a phase and a span of its own."""
     was = tracing.enabled()
     tracing.set_enabled(True)
 
@@ -289,6 +290,11 @@ def test_read_hops_partition_their_phases(tmp_path, monkeypatch, path):
             if path == "fanin":
                 assert net_parts == pytest.approx(phases["net_ms"], abs=0.05)
                 assert phases["gather_ms"] == 0
+                assert phases["fanin_fallback_ms"] == 0
+            else:
+                # the failed hop, charged to no phase but its own
+                (spent,) = [t1 - t0 for p, t0, t1 in charges if p == "fanin_fallback"]
+                assert phases["fanin_fallback_ms"] == pytest.approx(1e3 * spent, abs=0.01) and spent > 0
             return tid, c.trace_ring.dump(tid), [
                 json.loads(d.handle_admin_basics(m.AdminCommand(
                     req_id=1, command="trace-dump", json=json.dumps({"trace_id": tid}))).json)
@@ -305,9 +311,9 @@ def test_read_hops_partition_their_phases(tmp_path, monkeypatch, path):
             "read:net_run", "read:net_resume"} <= names
     gather_spans = {"read:gather_queue", "read:gather_run", "read:gather_resume"}
     if path == "fanin":
-        assert not gather_spans & names
+        assert not (gather_spans | {"read:fanin_fallback"}) & names
     else:
-        assert gather_spans <= names
+        assert gather_spans | {"read:fanin_fallback"} <= names
     # every role's spans on the one clock: the chunkservers' native ops
     # and the master's RPCs fall inside the client's read
     (root,) = [s for s in client_spans if s["name"] == "read_file"]

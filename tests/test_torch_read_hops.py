@@ -291,6 +291,7 @@ def test_span_ids_are_distinct_and_nonzero():
     ("read:net_resume", "queue"), ("read:gather_resume", "queue"),
     ("read:net_run", "net"), ("read:gather_run", "compute"),
     ("read:seam_stage", "compute"), ("read:seam_sync", "compute"),
+    ("read:fanin_fallback", "net"),
     # the whole phases keep their buckets
     ("read:net", "net"), ("read:gather", "compute"), ("read:decode", "compute"),
 ])
@@ -378,6 +379,7 @@ READERS = {
     "client.read_gather_run_ms_per_MiB": ("gather_run",),
     "seam.recover_stage_ms_per_MiB": ("seam_stage",),
     "seam.recover_sync_ms_per_MiB": ("seam_sync",),
+    "client.read_fanin_fallback_ms_per_MiB": ("fanin_fallback",),
 }
 
 

@@ -27,9 +27,11 @@ import pytest
 from lizardfs_tpu_torch.constants import MFSBLOCKSIZE
 from lizardfs_tpu_torch.core import geometry, native_io, plans, stripe_fanin
 from lizardfs_tpu_torch.core.encoder import CudaChunkEncoder
+from lizardfs_tpu_torch.runtime.metrics import phase_delta
 from lizardfs_tpu_torch.utils import data_generator, striping
 from tests.test_torch_client import GOALS, two_threads  # noqa: F401 (autouse fixture)
 from tests.test_torch_native_fast_paths import native_cluster, stalled_server, write_ec_file
+from tests.test_torch_wide_stripe import wide_cluster
 from tests.test_torch_native_serve import (  # noqa: F401 (autouse fixtures)
     jax_native_library, native_threads_released, run_native)
 
@@ -270,17 +272,24 @@ def test_whole_chunk_at_the_default_wave_timeout(tmp_path, monkeypatch):
     run_native(scenario())
 
 
-async def throttled_proxy(target: dict, rate: float):
+async def throttled_proxy(target: dict, rate: float, stop_after: int | None = None):
     """A proxy to ``target["addr"]`` that passes requests on at once and
-    answers at ``rate`` bytes a second; returns the server, its port and
-    its connections' writers."""
+    answers at ``rate`` bytes a second, and, with ``stop_after``, sends
+    nothing more once it has answered that many bytes in all; returns
+    the server, its port and its connections' writers."""
     writers = []
+    sent = [0]
 
     async def pipe(reader, writer, paced):
         try:
             while data := await reader.read(B):
+                if paced and stop_after is not None:
+                    data = data[: max(stop_after - sent[0], 0)]
+                    if not data:
+                        await asyncio.sleep(3600)
                 writer.write(data)
                 await writer.drain()
+                sent[0] += len(data) if paced else 0
                 if paced:
                     await asyncio.sleep(len(data) / rate)
         except ConnectionError:
@@ -331,6 +340,141 @@ def test_slow_part_that_keeps_moving_stays_on_the_fanin(tmp_path, monkeypatch):
                 server.close()
             assert counts(c) == (1, 0)
             assert len(rounds) == 8 and took > c.wave_timeout
+        finally:
+            await cluster.stop()
+
+    run_native(scenario())
+
+
+async def proxy_every_part(monkeypatch, cluster, rate: float, stop_after=None):
+    """The fan-in's gather with every part served through a proxy at
+    ``rate`` (the first slot's, with ``stop_after``, stopping there);
+    returns the proxies' servers and writers and the gather's calls."""
+    by_port, servers, writers, calls = {}, [], [], []
+    for cs in cluster.chunkservers:  # each one's native data port
+        addr = (cluster.cs_host, cs.data_server.port)
+        server, by_port[addr[1]], w = await throttled_proxy({"addr": addr}, rate)
+        servers.append(server)
+        writers.append(w)
+    first: dict = {}
+    server, first_port, w = await throttled_proxy(first, rate, stop_after)
+    servers.append(server)
+    writers.append(w)
+    real = native_io.read_parts_gather_blocking
+
+    def proxied(addrs, *a):
+        calls.append(len(addrs))
+        via = [("127.0.0.1", by_port[port]) for _, port in addrs]
+        if stop_after is not None:
+            first["addr"] = addrs[0]
+            via[0] = ("127.0.0.1", first_port)
+        return real(via, *a)
+
+    monkeypatch.setattr(native_io, "read_parts_gather_blocking", proxied)
+    return servers, writers, calls
+
+
+def test_wide_read_whose_parts_crawl_within_the_round_stays_on_the_fanin(tmp_path, monkeypatch):
+    """ec(32,8) with a data part lost, every part served at 2 MiB/s
+    (under the 3.3 MiB/s that 1 MiB a part a wave timeout asks for) and
+    none stalling: the read's one round, 256 KiB a part, fits in the
+    wave timeout, so the read stays on the fan-in, one gather call."""
+    async def scenario():
+        cluster, goal = await wide_cluster(tmp_path)
+        try:
+            c, f, data = await write_ec_file(cluster, nbytes=8 * MiB, goal=goal)
+            await cluster.stop_data_holder(f.inode, 32)
+            c.wave_timeout = 0.5
+            servers, writers, calls = await proxy_every_part(monkeypatch, cluster, 2 * MiB)
+            try:
+                c.cache.invalidate(f.inode)
+                t0 = time.monotonic()
+                assert await c.read_file(f.inode) == data
+                took = time.monotonic() - t0
+            finally:
+                for w in sum(writers, []):
+                    w.close()
+                for server in servers:
+                    server.close()
+            assert calls == [32] and took > 0.1  # 256 KiB a part at 2 MiB/s
+            assert counts(c) == (1, 0) and c.op_counters["stripe_fanin_rounds"] == 1
+            assert c.read_phases.snapshot()["fanin_fallback_ms"] == 0
+        finally:
+            await cluster.stop()
+
+    run_native(scenario())
+
+
+def test_wide_read_whose_part_stops_falls_back(tmp_path, monkeypatch):
+    """The same read, but slot 0's part stops after its first 100 KiB:
+    the round runs out of the wave timeout, and the read falls back to
+    the waves after that one timeout, with the bytes written; the
+    abandoned hop is charged as ``fanin_fallback`` and its round
+    counted."""
+    async def scenario():
+        cluster, goal = await wide_cluster(tmp_path)
+        try:
+            c, f, data = await write_ec_file(cluster, nbytes=8 * MiB, goal=goal)
+            await cluster.stop_data_holder(f.inode, 32)
+            c.wave_timeout = 0.5
+            servers, writers, calls = await proxy_every_part(
+                monkeypatch, cluster, 2 * MiB, stop_after=100 << 10)
+            try:
+                c.cache.invalidate(f.inode)
+                before = c.read_phases.snapshot()
+                t0 = time.monotonic()
+                assert await c.read_file(f.inode) == data
+                took = time.monotonic() - t0
+            finally:
+                for w in sum(writers, []):
+                    w.close()
+                for server in servers:
+                    server.close()
+            assert calls == [32] and counts(c) == (0, 1)
+            assert c.op_counters["stripe_fanin_rounds"] == 1
+            spent = phase_delta(c.read_phases.snapshot(), before)["fanin_fallback_ms"]
+            # a stall costs the read one wave timeout before the waves
+            assert 500 <= spent < min(1000, 1000 * took)
+        finally:
+            await cluster.stop()
+
+    run_native(scenario())
+
+
+def test_part_too_slow_for_its_round_falls_back(tmp_path, monkeypatch):
+    """ec(3,2) with a data part lost: slot 0's part keeps moving at 0.5
+    MiB/s while the other two send their 1 MiB at once. It has not
+    stalled, but it cannot deliver its 1 MiB round within the wave
+    timeout: the read falls back to the waves when the round runs out,
+    not after the 2 s the part needs."""
+
+    async def scenario():
+        cluster = native_cluster(tmp_path)
+        await cluster.start(health_interval=30.0)
+        try:
+            c, f, data = await write_ec_file(cluster, nbytes=3 * MiB)
+            await cluster.stop_data_holder(f.inode, 3)
+            c.wave_timeout = 0.3
+            target: dict = {}
+            server, port, writers = await throttled_proxy(target, MiB / 2)
+            real = native_io.read_parts_gather_blocking
+
+            def proxied(addrs, *a):
+                target["addr"] = addrs[0]
+                return real([("127.0.0.1", port), *addrs[1:]], *a)
+
+            monkeypatch.setattr(native_io, "read_parts_gather_blocking", proxied)
+            try:
+                c.cache.invalidate(f.inode)
+                t0 = time.monotonic()
+                assert await c.read_file(f.inode) == data
+                took = time.monotonic() - t0
+            finally:
+                for w in writers:
+                    w.close()
+                server.close()
+            assert counts(c) == (0, 1) and took < 1.9  # not the 2 s the part needs
+            assert c.op_counters["stripe_fanin_rounds"] == 1
         finally:
             await cluster.stop()
 
